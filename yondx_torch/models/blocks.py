@@ -1,0 +1,99 @@
+"""Building blocks of the SNR-Net (port of yondx/models/blocks.py).
+
+Modules run in NCHW; submodule names match the flax names so that
+`models.convert.params_to_state_dict` maps weights by path. The scalar
+guidance t is a [B] vector through Linear layers (flax Dense).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def data_normalize(x):
+    """Per-sample max normalization (lower bound pinned at 0)."""
+    ub = torch.amax(x, dim=(1, 2, 3), keepdim=True)
+    ub = torch.clamp(ub, min=1e-8)
+    return x / ub, 0.0, ub
+
+
+def data_inv_normalize(x, lb, ub):
+    return x * (ub - lb) + lb
+
+
+class GuideMLP(nn.Module):
+    """t [B] -> per-channel FiLM params (tk, tb), each [B, f, 1, 1]."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.gamma_in = nn.Linear(1, features)
+        self.gamma_out = nn.Linear(features, features)
+        self.beta_out = nn.Linear(features, features)
+
+    def forward(self, t):
+        t = t.reshape(-1, 1)
+        tk = self.gamma_out(F.silu(self.gamma_in(t)))
+        tb = self.beta_out(F.silu(tk))
+        return tk[:, :, None, None], tb[:, :, None, None]
+
+
+def conv3x3(cin: int, cout: int) -> nn.Conv2d:
+    """3x3 SAME conv (stride 1: symmetric padding 1)."""
+    return nn.Conv2d(cin, cout, 3, padding=1)
+
+
+def conv1x1(cin: int, cout: int) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 1)
+
+
+class StridedDown(nn.Module):
+    """Stride-2 3x3 conv with explicit (1, 1) padding (blocks.py:80-84)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class UpConvT(nn.Module):
+    """2x2 stride-2 transposed conv."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.deconv = nn.ConvTranspose2d(cin, cout, 2, stride=2)
+
+    def forward(self, x):
+        return self.deconv(x)
+
+
+class ShortCut(nn.Module):
+    """Identity, or a 1x1 conv when the channel count changes."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv = conv1x1(cin, cout) if cin != cout else None
+
+    def forward(self, x):
+        return x if self.conv is None else self.conv(x)
+
+
+class GuidedResidualBlock(nn.Module):
+    """FiLM residual block: shortcut, SiLU-conv, z*tk+tb, SiLU-conv, +x."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.short_cut = ShortCut(cin, features)
+        self.conv1 = conv3x3(features, features)
+        self.guide = GuideMLP(features)
+        self.conv2 = conv3x3(features, features)
+
+    def forward(self, x, t):
+        x = self.short_cut(x)
+        z = self.conv1(F.silu(x))
+        tk, tb = self.guide(t)
+        z = z * tk + tb
+        z = self.conv2(F.silu(z))
+        return z + x

@@ -1,0 +1,123 @@
+"""GuidedResUnetS2D, the shipped s2d SNR-Net (port of yondx/models/unets.py).
+
+Takes and returns channels-last [B, H, W, C] tensors like the flax model;
+inside it runs NCHW (a permuted view, so a channels-last input stays
+channels-last in memory, which is what cuDNN wants on the GPU).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import resolve_device
+from ..io.ckpt import load_checkpoint
+from .blocks import (GuidedResidualBlock, StridedDown, UpConvT, conv1x1,
+                     conv3x3, data_inv_normalize, data_normalize)
+from .convert import params_to_state_dict
+
+
+def _s2d2(x):
+    """space_to_depth(2) in NCHW with the NHWC channel order of
+    yondx's _s2d2: out channel (dy*2 + dx)*C + c."""
+    B, C, H, W = x.shape
+    x = x.reshape(B, C, H // 2, 2, W // 2, 2)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(B, 4 * C, H // 2, W // 2)
+
+
+def _d2s2(x):
+    """depth_to_space(2), inverse of _s2d2."""
+    B, C, H, W = x.shape
+    x = x.reshape(B, 2, 2, C // 4, H, W)
+    x = x.permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(B, C // 4, H * 2, W * 2)
+
+
+class GuidedResUnetS2D(nn.Module):
+    """s2d-packed SNR-Net: 3-down encoder at nf, bottleneck at 8 nf,
+    3x3 (out_k=3) or 1x1 head, optional full-resolution tail."""
+
+    def __init__(self, args: Dict[str, Any]):
+        super().__init__()
+        nf = args["nf"]
+        in_nc = args.get("in_nc", 4)
+        out_nc = args.get("out_nc", 4)
+        self.out_nc = out_nc
+        self.res = args.get("res", False)
+        self.norm = args.get("norm", False)
+        self.conv_in = conv3x3(4 * in_nc, nf)
+        feats = [nf, nf * 2, nf * 4]
+        cin = nf
+        for i, f in enumerate(feats):
+            setattr(self, f"conv{i + 1}", GuidedResidualBlock(cin, f))
+            nxt = feats[i + 1] if i + 1 < len(feats) else nf * 8
+            setattr(self, f"pool{i + 1}", StridedDown(f, nxt))
+            cin = nxt
+        self.conv4 = GuidedResidualBlock(cin, nf * 8)
+        cin = nf * 8
+        for i, f in enumerate([nf * 4, nf * 2, nf]):
+            setattr(self, f"upv{5 + i}", UpConvT(cin, f))
+            setattr(self, f"conv{5 + i}", GuidedResidualBlock(2 * f, f))
+            cin = f
+        out_k = args.get("out_k", 1)
+        self.conv_out = (conv3x3 if out_k == 3 else conv1x1)(nf, 4 * out_nc)
+        self.tail_nf = args.get("tail_nf", 0)
+        if self.tail_nf:
+            self.tail_1 = conv3x3(2 * out_nc, self.tail_nf)
+            self.tail_2 = conv3x3(self.tail_nf, out_nc)
+            nn.init.zeros_(self.tail_2.weight)
+
+    def forward(self, x, t):
+        """x: [B, H, W, C] channels-last, t: [B] guidance -> [B, H, W, C]."""
+        x = x.permute(0, 3, 1, 2)
+        t = t.to(x.dtype)
+        lb = ub = None
+        if self.norm:
+            x, lb, ub = data_normalize(x)
+            t = t / (ub - lb).reshape(-1)
+        inp = x
+        h = F.leaky_relu(self.conv_in(_s2d2(x)), 0.01)
+        skips = []
+        for i in range(1, 4):
+            h = getattr(self, f"conv{i}")(h, t)
+            skips.append(h)
+            h = getattr(self, f"pool{i}")(h)
+        h = self.conv4(h, t)
+        for i in range(3):
+            h = getattr(self, f"upv{5 + i}")(h)
+            h = torch.cat([h, skips[-1 - i]], dim=1)
+            h = getattr(self, f"conv{5 + i}")(h, t)
+        out = _d2s2(self.conv_out(h))
+        if self.res:
+            out = out + inp[:, :self.out_nc]
+        if self.tail_nf:
+            tin = torch.cat([out, inp[:, :self.out_nc]], dim=1)
+            th = F.leaky_relu(self.tail_1(tin), 0.01)
+            out = out + self.tail_2(th)
+        if self.norm:
+            out = data_inv_normalize(out, lb, ub)
+        return out.permute(0, 2, 3, 1)
+
+
+# bench.py's shipped s2dt16 architecture
+S2DT16_ARCH = {"name": "GuidedResUnetS2D", "guided": True, "in_nc": 4,
+               "out_nc": 4, "nf": 64, "nframes": 1, "res": True,
+               "norm": True, "out_k": 3, "tail_nf": 16}
+
+
+def load_guided_s2d(ckpt_path: str, device=None,
+                    dtype=torch.float32) -> GuidedResUnetS2D:
+    """Build the s2dt16 net and load a committed flax checkpoint into it,
+    in eval mode on `device` (default "cuda") with parameters in
+    `dtype`."""
+    dev = resolve_device(device)
+    net = GuidedResUnetS2D(S2DT16_ARCH)
+    sd = params_to_state_dict(load_checkpoint(ckpt_path)["params"])
+    net.load_state_dict(sd, strict=True)
+    net = net.to(device=dev, dtype=dtype).eval()
+    if dev.type == "cuda":
+        net = net.to(memory_format=torch.channels_last)
+    return net
