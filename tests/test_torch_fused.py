@@ -90,6 +90,22 @@ def test_slice_matches_jax_banded(nets):
     np.testing.assert_allclose(dn_t, dn_j, atol=2e-4)
 
 
+def test_slice_matches_jax_small_frame(nets):
+    """(c) _frame(40, 1024, 3) is a 36x1024 Bayer frame (its levels tile
+    H//6 rows), RGGB [1,18,512,4]: planes of 18 rows, fewer than the
+    23-sample texture halo, which the JAX package takes by periodic
+    reflection. Narrower frames of 36 rows (_frame(40, 128, 3)) collapse
+    the self estimate to the beta1 clamp on both sides, where fp32 VST
+    cancellation leaves nothing to compare; this one estimates K."""
+    rggb = _frame(40, 1024, 3)
+    assert rggb.shape == (1, 18, 512, 4)
+    dn_j, regs_j, dn_t, regs_t, _ = _run_both(nets, rggb, **PRODUCT)
+    assert dn_t.shape == rggb.shape
+    assert abs(float(regs_j[0, 0]) * 959.0 - 8.74) < 0.1 * 8.74
+    assert_regs_close(regs_t, regs_j)
+    np.testing.assert_allclose(dn_t, dn_j, atol=2e-4)
+
+
 def test_beta2_moves_under_1e6_shift(nets):
     """Frame (a), the product config: shifting every pixel by +-1e-6 moves
     beta2 of some round by more than 1e-3 (relative) in the JAX package

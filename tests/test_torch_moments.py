@@ -96,11 +96,22 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
     assert moments.LAUNCHES["nle_moments"] == 0
 
 
-def test_wrapper_rejects_small_planes_and_unknown_devices():
-    with pytest.raises(ValueError):
-        moments.nle_moments(torch.zeros((1, 23, 64, 4)), K, INNER)
-    with pytest.raises(ValueError):
-        moments.nle_moments(torch.zeros((1, 64, 20, 4)), K, INNER)
+@pytest.mark.parametrize("w", [5, 64])
+@pytest.mark.parametrize("h", [1, 2, 8, 14, 15, 20, 23])
+def test_wrapper_takes_small_planes_like_jax(h, w):
+    """Planes narrower than a window (down to 1 row or 5 columns): the
+    wrapper's CPU route against JAX, whose per-stage jnp.pad(mode=
+    'reflect') reflects periodically, on all three maps."""
+    x = _x((1, h, w, 4), 5)
+    got = moments.nle_moments(torch.from_numpy(x), K, INNER)
+    ref = j_box.nle_moments(jnp.asarray(x), K, INNER)
+    # the tolerances of test_plain_moments_match_jax_xla_path
+    for g, r, tol in zip(got, ref, (2e-6, 1e-6, 1e-5)):
+        assert g.shape == x.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=tol)
+
+
+def test_wrapper_rejects_unknown_devices():
     with pytest.raises(RuntimeError):
         moments.nle_moments(torch.zeros((1, 48, 64, 4), device="meta"),
                             K, INNER)

@@ -30,7 +30,8 @@ constexpr int TW = 32;          // output columns per block
 constexpr int NTHREADS = 256;
 
 __device__ __forceinline__ int reflect101(int i, int n) {
-  const int period = 2 * (n - 1);           // n >= 2 (checked by the wrapper)
+  if (n == 1) return 0;
+  const int period = 2 * (n - 1);
   i %= period;
   if (i < 0) i += period;
   return i >= n ? period - i : i;

@@ -29,11 +29,6 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-def halo(k: int, inner: int, texture: bool) -> int:
-    """Rows/columns of context one output needs: k//2 (+ inner//2)."""
-    return k // 2 + (inner // 2 if texture else 0)
-
-
 def nle_moments_plain(x, k: int, inner: int, texture: bool = True,
                       mean: bool = True):
     """The plain PyTorch version (any device): (mean, var, tex) with
@@ -81,11 +76,9 @@ def nle_moments(x, k: int, inner: int, texture: bool = True,
       tex  = stdfilt_k(box_inner(x)),
     reflect-101 borders, per-plane centered. `texture=False` / `mean=False`
     skip those maps (returned as None), as the collab fits need.
+    Any plane of at least 1x1 is taken: borders reflect periodically
+    when a window is wider than the plane, as jnp.pad(mode='reflect').
     CUDA tensors run K1; CPU tensors run the plain version."""
-    h, w = x.shape[-3], x.shape[-2]
-    if min(h, w) <= halo(k, inner, True):
-        raise ValueError(f"NLE moment planes must exceed {halo(k, inner, True)}"
-                         f" rows and columns, got {h}x{w}")
     if x.device.type == "cuda":
         return _launch_k1(x, k, inner, texture, mean)
     if x.device.type != "cpu":
