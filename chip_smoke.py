@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel K1 (NLE box moments) with plain nvcc, holds
-it against its plain PyTorch version on the card, holds the card path
+it against its plain PyTorch version on the card in its three flavours
+(self fit; collab fit of dn and of lr) and times each, holds the card path
 against the port's CPU path end to end on a small frame, then drives the
 product path (s2dt16 net from the committed checkpoint, bf16, robust NLE,
 refine, adaptive guidance, rescue policy, banded NLE) on a synthetic
@@ -65,11 +66,15 @@ def card_peaks(name: str):
 
 # fp32 operations one output of K1's function needs when every box sum
 # slides (add the entering sample, subtract the leaving one; 2 per pass,
-# 2 passes): 5 boxes (x, x^2, t1 = box_inner(x), t1, t1^2) = 20; the
-# squares x^2, t1^2 = 2; scaling the 5 sums by 1/k^2 or 1/inner^2 = 5;
-# var = max(E[x^2] - mean^2, 0) = 3; tex = sqrt(max(E[t1^2] - E[t1]^2, 0))
-# = 4; centering x and adding the plane mean back to mean = 2.
-K1_OPS_PER_OUTPUT = 36
+# 2 passes), by flavour. self (mean, var, tex): 5 boxes (x, x^2, t1 =
+# box_inner(x), t1, t1^2) = 20; the squares x^2, t1^2 = 2; scaling the 5
+# sums by 1/k^2 or 1/inner^2 = 5; var = max(E[x^2] - mean^2, 0) = 3; tex =
+# sqrt(max(E[t1^2] - E[t1]^2, 0)) = 4; shifting x and adding the shift
+# back to mean = 2. collab dn (mean, var): 2 boxes = 8, x^2 = 1, scaling
+# = 2, var = 3, shift and back = 2. collab lr (var): as dn without
+# adding the shift back.
+K1_FLAVOURS = {"self": (True, True, 36), "collab_dn": (False, True, 16),
+               "collab_lr": (False, False, 15)}
 
 
 def cuda_ms(fn, reps: int, flush=None) -> float:
@@ -168,63 +173,80 @@ def main() -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     frame_a = torch.rand((1, 1536, 2048, 4), generator=g, device=dev) * 0.7
     x_a = _take_bands(frame_a, 6, 2, 3, 256)      # main-path band view
-    x_b = torch.rand((1, 300, 520, 4), generator=g, device=dev)
-    x_c = torch.full((1, 64, 96, 4), 0.37, device=dev)
-    # tolerances: fp32 direct window sums (kernel) vs prefix sums (plain)
-    # of per-plane centered data in [0,1]: mean 1e-5 (a few ulps of a
-    # 29x29 sum), var 1e-6 (differences of ~1e-1 second moments at fp32),
-    # tex 5e-5 (sqrt amplifies the ~1e-9 variance error of the smooth t1
-    # field where its local variance is small)
+    cases = (("a [1,2,256,2048,4] bands", x_a),
+             ("b [1,300,520,4]", torch.rand((1, 300, 520, 4), generator=g,
+                                            device=dev)),
+             ("c constant", torch.full((1, 64, 96, 4), 0.37, device=dev)),
+             ("d [1,20,64,4]", torch.rand((1, 20, 64, 4), generator=g,
+                                          device=dev)),
+             ("e [1,15,40,4]", torch.rand((1, 15, 40, 4), generator=g,
+                                          device=dev)),
+             ("f [1,1,37,4]", torch.rand((1, 1, 37, 4), generator=g,
+                                         device=dev)))
+    # tolerances: fp32 sliding sums over runs of <= 32 outputs of data
+    # shifted per tile (kernel) vs prefix sums of per-plane centered data
+    # (plain), in [0,1]: mean 1e-5 (a few ulps of a 29x29 sum), var 1e-6
+    # (differences of ~1e-1 second moments at fp32), tex 5e-5 (sqrt
+    # amplifies the ~1e-9 variance error of the smooth t1 field where its
+    # local variance is small)
     tol = {"mean": 1e-5, "var": 1e-6, "tex": 5e-5}
     max_err = 0.0
-    for label, x in (("a [1,2,256,2048,4] bands", x_a),
-                     ("b [1,300,520,4]", x_b), ("c constant", x_c)):
-        got = moments.nle_moments(x, k, inner)
-        torch.cuda.synchronize()
-        ref = moments.nle_moments_plain(x, k, inner)
-        errs = {}
-        for key, gv, rv in zip(("mean", "var", "tex"), got, ref):
-            if not bool(torch.isfinite(gv).all()):
-                raise AssertionError(f"K1 {label}: non-finite {key}")
-            errs[key] = float((gv - rv).abs().max())
-            if errs[key] > tol[key]:
-                raise AssertionError(f"K1 {label}: {key} err {errs[key]:.3e}"
-                                     f" > {tol[key]:.0e}")
-        if label.startswith("c"):
-            tmax = float(got[2].abs().max())
-            if tmax > 1e-6:
-                raise AssertionError(f"K1 constant plane: tex {tmax} != 0")
-        max_err = max(max_err, *errs.values())
-        say("K1 vs plain", f"{label}: max abs err " + ", ".join(
-            f"{kk} {v:.3e}" for kk, v in errs.items()))
-    # the collab flavour (no texture, no mean) at the band shape
-    _, v_only, _ = moments.nle_moments(x_a, k, inner, texture=False,
-                                       mean=False)
-    _, v_ref, _ = moments.nle_moments_plain(x_a, k, inner, texture=False)
-    err_v = float((v_only - v_ref).abs().max())
-    if err_v > tol["var"]:
-        raise AssertionError(f"K1 var-only err {err_v:.3e}")
-    say("K1 vs plain", f"a var-only flavour: max abs err var {err_v:.3e}")
+    for label, x in cases:
+        line = []
+        for flavour, (texture, mean, _) in K1_FLAVOURS.items():
+            got = moments.nle_moments(x, k, inner, texture, mean)
+            torch.cuda.synchronize()
+            ref = moments.nle_moments_plain(x, k, inner, texture, mean)
+            errs = {}
+            for key, gv, rv in zip(("mean", "var", "tex"), got, ref):
+                if (gv is None) != (rv is None):
+                    raise AssertionError(f"K1 {label} {flavour}: {key} "
+                                         "returned by one side only")
+                if gv is None:
+                    continue
+                if gv.shape != x.shape or not bool(torch.isfinite(gv).all()):
+                    raise AssertionError(f"K1 {label} {flavour}: {key} has "
+                                         "another shape or is not finite")
+                errs[key] = float((gv - rv).abs().max())
+                if errs[key] > tol[key]:
+                    raise AssertionError(
+                        f"K1 {label} {flavour}: {key} err {errs[key]:.3e} > "
+                        f"{tol[key]:.0e}")
+            if label.startswith("c") and texture:
+                tmax = float(got[2].abs().max())
+                if tmax > 1e-6:
+                    raise AssertionError(f"K1 constant plane: tex {tmax} != 0")
+            max_err = max(max_err, *errs.values())
+            line.append(f"{flavour} " + ", ".join(
+                f"{kk} {v:.3e}" for kk, v in errs.items()))
+        say("K1 vs plain", f"{label}: max abs err " + "; ".join(line))
 
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     def flush():
         scratch.zero_()
 
-    ms_k1 = cuda_ms(lambda: moments.nle_moments(x_a, k, inner), 20, flush)
+    # each flavour at the main-path band shape, cold L2, against its own
+    # bound: one read of the input and one write per map
+    n_out = x_a.numel()
+    peak_key, (bw, fp32) = card_peaks(name)
+    timing = {}
+    for flavour, (texture, mean, ops) in K1_FLAVOURS.items():
+        ms = cuda_ms(lambda: moments.nle_moments(x_a, k, inner, texture,
+                                                 mean), 20, flush)
+        bytes_moved = 4 * n_out * (2 + texture + mean)
+        t_bytes, t_ops = bytes_moved / bw * 1e3, n_out * ops / fp32 * 1e3
+        timing[flavour] = (ms, max(t_bytes, t_ops),
+                           "bytes" if t_bytes >= t_ops else "operations",
+                           bytes_moved)
+    ms_k1, bound_ms, bound_by, _ = timing["self"]
     ms_plain = cuda_ms(lambda: moments.nle_moments_plain(x_a, k, inner), 10,
                        flush)
-    n_out = x_a.numel()
-    bytes_moved = 4 * n_out * (1 + 3)
-    flops = n_out * K1_OPS_PER_OUTPUT
-    peak_key, (bw, fp32) = card_peaks(name)
-    t_bytes, t_ops = bytes_moved / bw * 1e3, flops / fp32 * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    say("K1 timing", f"a: K1 {ms_k1:.4f} ms, plain {ms_plain:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({bytes_moved / 1e6:.1f} MB, "
-        f"{flops / 1e9:.3f} GFLOP; {peak_key} peaks), cold L2")
-    del scratch, frame_a, x_a, x_b, x_c
+    say("K1 timing", "a, cold L2 (" + peak_key + " peaks): " + "; ".join(
+        f"{f} {ms:.4f} ms, bound {b:.4f} ms by {by} ({mb / 1e6:.1f} MB), "
+        f"{ms / b:.1f}x" for f, (ms, b, by, mb) in timing.items())
+        + f"; plain (self) {ms_plain:.4f} ms")
+    del scratch, frame_a, x_a, cases
 
     # 4. card path against the port's CPU path, end to end ------------------
     from yondx_torch.isp.bayer import bayer2rggb, rggb2bayer

@@ -2,32 +2,59 @@
 //
 // Replaces the Pallas TPU kernel yondx/nle/pallas_ops.py::_moments_kernel
 // (launched by _pallas_moments_planes, entry fused_moments). Per plane of
-// a channels-last stack [L, H, W, C], with x centered by its plane mean:
-//   mean = box_k(x) + plane_mean
+// a channels-last stack [L, H, W, C]:
+//   mean = box_k(x)
 //   var  = max(box_k(x^2) - box_k(x)^2, 0)
 //   tex  = sqrt(max(box_k(t1^2) - box_k(t1)^2, 0)),  t1 = box_inner(x)
-// with reflect-101 borders (cv2.blur semantics). Centering matches the
-// plain version (yondx_torch/nle/boxfilter.py); the Pallas kernel's
-// uncentered E[x^2] - E[x]^2 is deliberately not copied.
+// with reflect-101 borders (cv2.blur semantics), periodic where a window
+// is wider than the plane, as jnp.pad(mode='reflect') in the reference.
 //
-// Design: one block per (plane, row tile, column tile); the halo'd tile is
-// staged in shared memory with reflect-101 indexing done here (no padded
-// copy in device memory), then separable DIRECT window sums run in shared
-// memory (no running sums, so rounding does not drift along a row). The
-// channel index varies fastest over blocks, so the C blocks of one tile
-// share the cache lines of the channels-last input. At the main path's
-// shape the bytes bound the function (one read, three writes: ~20 us at
-// 3.35 TB/s; its ~36 operations per output with sliding sums take ~2 us
-// at 67 TFLOP/s). The direct sums here do ~328 per output, ~21 us of fp32
-// issue: a cost of this design, which a sliding-sum kernel would not pay.
+// What bounds it: bytes. At the main path's shape (bands of a 3072x4096
+// Bayer frame: [2, 256, 2048, 4] fp32, 8 planes of 256x2048) the function
+// reads 16.8 MB and writes 16.8 MB per map: 67.1 MB for the self fit
+// (mean, var, tex), 0.0200 ms at 3.35 TB/s; 50.3 MB for the collab fit of
+// dn (mean, var), 0.0150 ms; 33.5 MB for that of lr (var), 0.0100 ms. With
+// sliding sums it needs ~36 fp32 operations per output, 0.0023 ms at
+// 67 TFLOP/s.
+//
+// Design. One block per (plane, row tile, column tile, channel), the
+// channel fastest, so the C blocks of a tile share the cache lines of the
+// channels-last input in L2. A block stages its TH x TW tile with a halo
+// of P = k/2 (+ inner/2 with texture) straight from the strided input,
+// with periodic reflect-101 index arithmetic (no padded copy), centered on
+// one sample of the tile: var and tex do not change under a shift and mean
+// adds it back, so no pass over the plane precedes the kernel. The box
+// sums then run as separable passes over shared memory, each a sliding
+// sum in registers: a thread owns a run of at most MAX_RUN consecutive
+// outputs along the pass's axis, opens it with one direct window sum and
+// slides (adds the entering sample, subtracts the leaving one). Restarting
+// every run bounds the fp32 drift; a run costs ~2 + K/run shared reads per
+// output instead of K. Horizontal runs go one row per thread over rows of
+// odd pitch, so a warp's 32 rows fall in 32 banks; vertical runs go one
+// column per thread, neighbouring threads on neighbouring addresses, and
+// the last, vertical, pass writes the outputs. The host picks each pass's
+// run length (run_length) so one block's runs fill its 256 threads.
+//
+// Shared memory, floats, with k = 29, inner = 19 and texture (P = 23):
+//   A: staged tile (TH+2P) x odd(TW+2P) = 110 x 111 = 12210, later t1,
+//      (TH+2kh) x odd(TW+2kh) = 92 x 93 = 8556
+//   B: index tables, then the k-sums of x and x^2 along rows,
+//      2 x (TH+2kh) x odd(TW) = 2 x 92 x 65 = 11960, then the vertical
+//      inner sums 92 x 111 = 10212, then the k-sums of t1 and t1^2 (11960)
+// 24170 floats = 96.7 KB a block, so 2 blocks of 256 threads share an SM
+// (228 KB); without texture (P = 14) 8556 + 11960 floats = 82.1 KB. A
+// block stages (TH+2P)(TW+2P)/(TH*TW) = 2.95x its outputs (2.07x without
+// texture).
 #include <cuda_runtime.h>
 #include <limits.h>
 
 namespace {
 
-constexpr int TH = 32;          // output rows per block
-constexpr int TW = 32;          // output columns per block
+constexpr int TH = 64;          // output rows per block
+constexpr int TW = 64;          // output columns per block
 constexpr int NTHREADS = 256;
+constexpr int MAX_RUN = 32;     // longest sliding run
+constexpr int MAX_DEVICES = 64;
 
 __device__ __forceinline__ int reflect101(int i, int n) {
   if (n == 1) return 0;
@@ -37,9 +64,55 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   return i >= n ? period - i : i;
 }
 
+// Tile geometry of one flavour; pitches of arrays read one row per thread
+// are odd.
+struct Geom {
+  int kh, P;            // k-window half width; staged halo
+  int RH, RW, pX;       // staged rows, columns, row pitch
+  int MH;               // rows the k-windows reach: TH + 2 kh
+  int pH;               // pitch of the k-sums along rows (TW columns)
+  int TWK, pT;          // columns of t1: TW + 2 kh, and its pitch
+  int a, b;             // floats in regions A and B
+};
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ inline Geom geometry(int k, int inner, int tex) {
+  Geom g;
+  g.kh = k / 2;
+  g.P = g.kh + (tex ? inner / 2 : 0);
+  g.RH = TH + 2 * g.P;
+  g.RW = TW + 2 * g.P;
+  g.pX = g.RW | 1;
+  g.MH = TH + 2 * g.kh;
+  g.pH = TW | 1;
+  g.TWK = TW + 2 * g.kh;
+  g.pT = g.TWK | 1;
+  g.a = imax(g.RH * g.pX, tex ? g.MH * g.pT : 0);
+  g.b = imax(imax(2 * g.MH * g.pH, tex ? g.MH * g.pX : 0), g.RH + g.RW);
+  return g;
+}
+
+// Run length of a sliding pass over `lanes` lines of n outputs with a
+// K-wide window: the one (at most MAX_RUN) that minimises the block's
+// passes over its runs times the cost of one run (K reads to open it, 2
+// per slide); ties keep the longer run.
+int run_length(int lanes, int n, int K) {
+  int best = 1;
+  long long best_cost = LLONG_MAX;
+  for (int R = n < MAX_RUN ? n : MAX_RUN; R >= 1; --R) {
+    const long long runs = (long long)lanes * ((n + R - 1) / R);
+    const long long cost = (runs + NTHREADS - 1) / NTHREADS * (K + 2 * (R - 1));
+    if (cost < best_cost) {
+      best_cost = cost;
+      best = R;
+    }
+  }
+  return best;
+}
+
 struct Params {
   const float* x;
-  const float* plane_mean;                  // [L, C]
   float* mean_out;                          // contiguous [L, H, W, C]
   float* var_out;
   float* tex_out;
@@ -48,30 +121,124 @@ struct Params {
   int k, inner;
   int want_mean, want_tex;
   int tiles_x, tiles_y;
+  int run_hk, run_vk, run_vi, run_hi;       // run lengths of the passes
 };
 
-__host__ __device__ inline int halo(int k, int inner, int want_tex) {
-  return k / 2 + (want_tex ? inner / 2 : 0);
-}
-
-size_t smem_floats(int k, int inner, int want_tex) {
-  const int kh = k / 2, P = halo(k, inner, want_tex);
-  const size_t RH = TH + 2 * P, RW = TW + 2 * P, MH = TH + 2 * kh;
-  size_t n = RH * RW + 2 * MH * TW;
-  if (want_tex) {
-    const size_t TWK = TW + 2 * kh;
-    n += RH * TWK + MH * TWK + 2 * MH * TW;
+// A compensated (Kahan) fp32 sum.
+struct Kahan {
+  float s = 0.f, c = 0.f;
+  __device__ __forceinline__ void add(float v) {
+    const float y = v - c;
+    const float t = s + y;
+    c = (t - s) - y;
+    s = t;
   }
-  return n;
+};
+
+// Sliding sums along rows: for r < lanes, q < n,
+//   o1[r*po + q] = scale * sum_{d<K} in[r*pi + q + d] - sub
+// and, with SQ, o2 the sum of squares. One thread per (row, run). With SQ
+// (the k-window moments, whose squares cancel in var and tex) both sums
+// are compensated.
+template <bool SQ>
+__device__ __forceinline__ void hpass(const float* __restrict__ in, int pi,
+                                      int lanes, int n, int K, int R,
+                                      float scale, float sub,
+                                      float* __restrict__ o1,
+                                      float* __restrict__ o2, int po) {
+  const int items = lanes * ((n + R - 1) / R);
+  for (int it = threadIdx.x; it < items; it += NTHREADS) {
+    const int r = it % lanes, q0 = it / lanes * R;
+    const int len = min(R, n - q0);
+    const float* row = in + r * pi + q0;
+    float* d1 = o1 + r * po + q0;
+    if constexpr (SQ) {
+      float* d2 = o2 + r * po + q0;
+      Kahan s, s2;
+      for (int d = 0; d < K; ++d) {
+        const float v = row[d];
+        s.add(v);
+        s2.add(v * v);
+      }
+      d1[0] = fmaf(s.s, scale, -sub);
+      d2[0] = s2.s;
+      for (int t = 1; t < len; ++t) {
+        const float a = row[t + K - 1], b = row[t - 1];
+        s.add(a - b);
+        s2.add(fmaf(a, a, -b * b));
+        d1[t] = fmaf(s.s, scale, -sub);
+        d2[t] = s2.s;
+      }
+    } else {
+      float s = 0.f;
+      for (int d = 0; d < K; ++d) s += row[d];
+      d1[0] = fmaf(s, scale, -sub);
+      for (int t = 1; t < len; ++t) {
+        s += row[t + K - 1] - row[t - 1];
+        d1[t] = fmaf(s, scale, -sub);
+      }
+    }
+  }
 }
 
-__global__ void __launch_bounds__(NTHREADS) nle_moments_kernel(Params p) {
+// Sliding sums along columns: for q < lanes, r < n,
+//   o[r*po + q] = sum_{d<K} in[(r + d)*pi + q]. One thread per (column, run).
+__device__ __forceinline__ void vpass(const float* __restrict__ in, int pi,
+                                      int lanes, int n, int K, int R,
+                                      float* __restrict__ o, int po) {
+  const int items = lanes * ((n + R - 1) / R);
+  for (int it = threadIdx.x; it < items; it += NTHREADS) {
+    const int q = it % lanes, r0 = it / lanes * R;
+    const int len = min(R, n - r0);
+    const float* col = in + r0 * pi + q;
+    float* dst = o + r0 * po + q;
+    float s = 0.f;
+    for (int d = 0; d < K; ++d) s += col[d * pi];
+    dst[0] = s;
+    for (int t = 1; t < len; ++t) {
+      s += col[(t + K - 1) * pi] - col[(t - 1) * pi];
+      dst[t * po] = s;
+    }
+  }
+}
+
+// The last pass: sliding k-sums along columns of two arrays (a sum and a
+// sum of squares, pitch pi) for the TH x TW outputs that lie in the plane;
+// epi(r, q, s, s2) writes output (y0 + r, x0 + q). Compensated, as the
+// moments of hpass<true>: these sums reach k^2 samples.
+template <class Epi>
+__device__ __forceinline__ void vlast(const float* __restrict__ u,
+                                      const float* __restrict__ u2, int pi,
+                                      int K, int R, int rows, int cols,
+                                      Epi epi) {
+  const int items = TW * ((TH + R - 1) / R);
+  for (int it = threadIdx.x; it < items; it += NTHREADS) {
+    const int q = it % TW, r0 = it / TW * R;
+    if (q >= cols || r0 >= rows) continue;
+    const int len = min(R, rows - r0);
+    const float* c1 = u + r0 * pi + q;
+    const float* c2 = u2 + r0 * pi + q;
+    Kahan s, s2;
+    for (int d = 0; d < K; ++d) {
+      s.add(c1[d * pi]);
+      s2.add(c2[d * pi]);
+    }
+    epi(r0, q, s.s, s2.s);
+    for (int t = 1; t < len; ++t) {
+      s.add(c1[(t + K - 1) * pi] - c1[(t - 1) * pi]);
+      s2.add(c2[(t + K - 1) * pi] - c2[(t - 1) * pi]);
+      epi(r0 + t, q, s.s, s2.s);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 2) nle_moments_kernel(Params p) {
   extern __shared__ float smem[];
-  const int kh = p.k / 2;
-  const int P = halo(p.k, p.inner, p.want_tex);
-  const int RH = TH + 2 * P, RW = TW + 2 * P;   // staged input tile
-  const int MH = TH + 2 * kh;                   // rows of the horizontal k-sums
-  const int TWK = TW + 2 * kh;                  // columns of t1
+  const Geom g = geometry(p.k, p.inner, p.want_tex);
+  float* A = smem;
+  float* B = smem + g.a;
+  int* y_off = reinterpret_cast<int*>(B);  // staged row -> input offset
+  int* x_off = y_off + g.RH;               // staged column -> input offset
 
   int b = blockIdx.x;
   const int c = b % p.C;
@@ -81,112 +248,99 @@ __global__ void __launch_bounds__(NTHREADS) nle_moments_kernel(Params p) {
   const int ty = b % p.tiles_y;
   const int l = b / p.tiles_y;
   const int y0 = ty * TH, x0 = tx * TW;
-  const float cmean = p.plane_mean[(long long)l * p.C + c];
+  const int rows = min(TH, p.H - y0), cols = min(TW, p.W - x0);
   const float* src = p.x + (long long)l * p.sl + (long long)c * p.sc;
-
-  float* sX = smem;                   // RH x RW   centered input
-  float* hX = sX + RH * RW;           // MH x TW   horizontal k-sums of x
-  float* hX2 = hX + MH * TW;          // MH x TW   ... of x^2
-  float* hI = hX2 + MH * TW;          // RH x TWK  horizontal inner sums
-  float* t1 = hI + RH * TWK;          // MH x TWK  box_inner(x)
-  float* hT = t1 + MH * TWK;          // MH x TW   horizontal k-sums of t1
-  float* hT2 = hT + MH * TW;          // MH x TW   ... of t1^2
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < RH * RW; i += NTHREADS) {
-    const int r = i / RW, q = i - r * RW;
-    const int gy = reflect101(y0 - P + r, p.H);
-    const int gx = reflect101(x0 - P + q, p.W);
-    sX[i] = src[gy * p.sy + gx * p.sx] - cmean;
+  // the block's shift: one sample of its own tile
+  const float shift = src[(long long)(y0 + rows / 2) * p.sy
+                          + (long long)(x0 + cols / 2) * p.sx];
+
+  for (int i = tid; i < g.RH; i += NTHREADS)
+    y_off[i] = (int)(reflect101(y0 - g.P + i, p.H) * p.sy);
+  for (int i = tid; i < g.RW; i += NTHREADS)
+    x_off[i] = (int)(reflect101(x0 - g.P + i, p.W) * p.sx);
+  __syncthreads();
+
+  // stage: one warp per row, neighbouring lanes on neighbouring columns
+  for (int r = tid / 32; r < g.RH; r += NTHREADS / 32) {
+    const float* srow = src + y_off[r];
+    float* drow = A + r * g.pX;
+#pragma unroll 4
+    for (int q = tid % 32; q < g.RW; q += 32) drow[q] = srow[x_off[q]] - shift;
   }
   __syncthreads();
 
-  const int off = P - kh;             // tile offset of the x/x^2 windows
-  for (int i = tid; i < MH * TW; i += NTHREADS) {
-    const int r = i / TW, q = i - r * TW;
-    const float* row = sX + (r + off) * RW + q + off;
-    float s = 0.f, s2 = 0.f;
-    for (int d = 0; d < p.k; ++d) {
-      const float v = row[d];
-      s += v;
-      s2 += v * v;
-    }
-    hX[i] = s;
-    hX2[i] = s2;
-  }
-
-  if (p.want_tex) {
-    for (int i = tid; i < RH * TWK; i += NTHREADS) {
-      const int r = i / TWK, q = i - r * TWK;
-      const float* row = sX + r * RW + q;
-      float s = 0.f;
-      for (int d = 0; d < p.inner; ++d) s += row[d];
-      hI[i] = s;
-    }
-    __syncthreads();
-    const float inv_i2 = 1.f / (float)(p.inner * p.inner);
-    for (int i = tid; i < MH * TWK; i += NTHREADS) {
-      const int r = i / TWK, q = i - r * TWK;
-      float s = 0.f;
-      for (int d = 0; d < p.inner; ++d) s += hI[(r + d) * TWK + q];
-      t1[i] = s * inv_i2;
-    }
-    __syncthreads();
-    for (int i = tid; i < MH * TW; i += NTHREADS) {
-      const int r = i / TW, q = i - r * TW;
-      const float* row = t1 + r * TWK + q;
-      float s = 0.f, s2 = 0.f;
-      for (int d = 0; d < p.k; ++d) {
-        const float v = row[d];
-        s += v;
-        s2 += v * v;
-      }
-      hT[i] = s;
-      hT2[i] = s2;
-    }
-  }
+  // k-sums of x and x^2 along rows (MH rows x TW columns), then along
+  // columns into mean and var
+  const int off = g.P - g.kh;
+  float* hx = B;
+  float* hx2 = B + g.MH * g.pH;
+  hpass<true>(A + off * g.pX + off, g.pX, g.MH, TW, p.k, p.run_hk, 1.f, 0.f,
+              hx, hx2, g.pH);
   __syncthreads();
-
   const float inv_k2 = 1.f / (float)(p.k * p.k);
-  for (int i = tid; i < TH * TW; i += NTHREADS) {
-    const int r = i / TW, q = i - r * TW;
-    const int gy = y0 + r, gx = x0 + q;
-    if (gy >= p.H || gx >= p.W) continue;
-    float s = 0.f, s2 = 0.f;
-    for (int d = 0; d < p.k; ++d) {
-      s += hX[(r + d) * TW + q];
-      s2 += hX2[(r + d) * TW + q];
-    }
-    const float m = s * inv_k2;
-    const long long o = (((long long)l * p.H + gy) * p.W + gx) * p.C + c;
-    if (p.want_mean) p.mean_out[o] = m + cmean;
-    p.var_out[o] = fmaxf(s2 * inv_k2 - m * m, 0.f);
-    if (p.want_tex) {
-      float u = 0.f, u2 = 0.f;
-      for (int d = 0; d < p.k; ++d) {
-        u += hT[(r + d) * TW + q];
-        u2 += hT2[(r + d) * TW + q];
-      }
-      const float tm = u * inv_k2;
-      p.tex_out[o] = sqrtf(fmaxf(u2 * inv_k2 - tm * tm, 0.f));
-    }
-  }
+  const long long pix0 = ((long long)l * p.H + y0) * p.W + x0;
+  const int W = p.W, C = p.C;
+  auto out_at = [=](int r, int q) {
+    return (pix0 + (long long)r * W + q) * C + c;
+  };
+  float* const mean_out = p.want_mean ? p.mean_out : nullptr;
+  float* const var_out = p.var_out;
+  vlast(hx, hx2, g.pH, p.k, p.run_vk, rows, cols,
+        [=](int r, int q, float s, float s2) {
+          const float m = s * inv_k2;
+          const long long o = out_at(r, q);
+          if (mean_out) mean_out[o] = m + shift;
+          var_out[o] = fmaxf(s2 * inv_k2 - m * m, 0.f);
+        });
+  if (!p.want_tex) return;
+  __syncthreads();
+
+  // t1 = box_inner(x) over MH rows x TWK columns: sums along columns of
+  // the staged tile into B, then along rows into A (sX is dead). t1 is
+  // smooth, so it is shifted again, by its own value at the tile's
+  // sample: tex does not change, and t1^2 stays near the variance it
+  // measures instead of near (t1 - shift)^2
+  vpass(A, g.pX, g.RW, g.MH, p.inner, p.run_vi, B, g.pX);
+  __syncthreads();
+  const float inv_i2 = 1.f / (float)(p.inner * p.inner);
+  const float* vc = B + (rows / 2 + g.kh) * g.pX + cols / 2 + g.kh;
+  float t_shift = 0.f;
+  for (int d = 0; d < p.inner; ++d) t_shift += vc[d];
+  hpass<false>(B, g.pX, g.MH, g.TWK, p.inner, p.run_hi, inv_i2,
+               t_shift * inv_i2, A, nullptr, g.pT);
+  __syncthreads();
+  // k-sums of t1 and t1^2 along rows into B, then along columns into tex
+  hpass<true>(A, g.pT, g.MH, TW, p.k, p.run_hk, 1.f, 0.f, hx, hx2, g.pH);
+  __syncthreads();
+  float* const tex_out = p.tex_out;
+  vlast(hx, hx2, g.pH, p.k, p.run_vk, rows, cols,
+        [=](int r, int q, float s, float s2) {
+          const float m = s * inv_k2;
+          tex_out[out_at(r, q)] = sqrtf(fmaxf(s2 * inv_k2 - m * m, 0.f));
+        });
 }
 
 }  // namespace
 
 // Launches K1 on `stream`; returns the cudaError_t of the launch (0 = ok).
 // Outputs are contiguous [L, H, W, C]; mean_out / tex_out may be null when
-// want_mean / want_tex is 0.
-extern "C" int yondx_nle_moments(const void* x, const void* plane_mean,
-                                 void* mean_out, void* var_out, void* tex_out,
-                                 int L, int H, int W, int C,
+// want_mean / want_tex is 0. The shared-memory limit of the kernel is
+// raised once per device, when a launch first needs more.
+extern "C" int yondx_nle_moments(const void* x, void* mean_out, void* var_out,
+                                 void* tex_out, int L, int H, int W, int C,
                                  long long sl, long long sy, long long sx,
                                  long long sc, int k, int inner,
                                  int want_mean, int want_tex, void* stream) {
+  static int smem_set[MAX_DEVICES];
+  if (L <= 0 || H <= 0 || W <= 0 || C <= 0 || k <= 0 || inner <= 0)
+    return (int)cudaErrorInvalidValue;
+  // offsets inside a plane are 32-bit in the kernel
+  if ((long long)(H - 1) * sy + (long long)(W - 1) * sx > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.x = static_cast<const float*>(x);
-  p.plane_mean = static_cast<const float*>(plane_mean);
   p.mean_out = static_cast<float*>(mean_out);
   p.var_out = static_cast<float*>(var_out);
   p.tex_out = static_cast<float*>(tex_out);
@@ -196,13 +350,25 @@ extern "C" int yondx_nle_moments(const void* x, const void* plane_mean,
   p.want_mean = want_mean; p.want_tex = want_tex;
   p.tiles_x = (W + TW - 1) / TW;
   p.tiles_y = (H + TH - 1) / TH;
-  const size_t smem = smem_floats(k, inner, want_tex) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      nle_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const Geom g = geometry(k, inner, want_tex);
+  p.run_hk = run_length(g.MH, TW, k);
+  p.run_vk = run_length(TW, TH, k);
+  p.run_vi = run_length(g.RW, g.MH, inner);
+  p.run_hi = run_length(g.MH, g.TWK, inner);
+  const int smem = (g.a + g.b) * (int)sizeof(float);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(nle_moments_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = smem;
+  }
   const long long blocks = (long long)L * C * p.tiles_x * p.tiles_y;
-  if (blocks <= 0 || blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   nle_moments_kernel<<<(unsigned)blocks, NTHREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();

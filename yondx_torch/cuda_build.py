@@ -77,7 +77,7 @@ def build(force: bool = False, verbose: bool = False) -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.yondx_nle_moments.argtypes = [p, p, p, p, p, i, i, i, i,
+    lib.yondx_nle_moments.argtypes = [p, p, p, p, i, i, i, i,
                                       ll, ll, ll, ll, i, i, i, i, p]
     lib.yondx_nle_moments.restype = ctypes.c_int
     return lib

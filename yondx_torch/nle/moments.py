@@ -6,13 +6,15 @@ launches K1 (or raises); a CPU tensor takes the plain PyTorch version in
 boxfilter.py. There is no fallback between the two.
 
 Bound on an H100 SXM at the main path's shape (bands of a 3072x4096 Bayer
-frame: [2, 256, 2048, 4] fp32 = 8 planes of 256x2048): one read and three
-writes of 16.8 MB = 67 MB of device memory, ~20 us at 3.35 TB/s. The
-function needs ~36 fp32 operations per output with sliding box sums
-(0.15 GFLOP, ~2 us at 67 TFLOP/s), so bytes bound it. K1's direct window
-sums do ~10k + 2*inner = 328 per output: that is its design choice (no
-drift along a row), not a limit of the card. Its time is reported beside
-this bound in PERF.md.
+frame: [2, 256, 2048, 4] fp32 = 8 planes of 256x2048): bytes. One read
+of 16.8 MB and one write of 16.8 MB per map: 67.1 MB for the self fit's
+three maps, 0.0200 ms at 3.35 TB/s (collab fits: 50.3 MB / 0.0150 ms for
+mean and var, 33.5 MB / 0.0100 ms for var). The function needs ~36 fp32
+operations per output with sliding box sums (0.15 GFLOP, ~2 us at
+67 TFLOP/s). K1 stages a halo'd tile per block and channel, centered on
+one of its own samples (so nothing runs before it), and slides every box
+sum in registers over runs of at most 32 outputs. Its time is reported
+beside this bound in PERF.md.
 """
 from __future__ import annotations
 
@@ -49,7 +51,6 @@ def _launch_k1(x, k: int, inner: int, texture: bool, mean: bool):
     h, w, C = shape[-3:]
     x4 = x.reshape((-1, h, w, C))
     L = x4.shape[0]
-    plane_mean = torch.mean(x4, dim=(1, 2)).contiguous()
     out_m = torch.empty((L, h, w, C), device=x.device) if mean else None
     out_v = torch.empty((L, h, w, C), device=x.device)
     out_t = torch.empty((L, h, w, C), device=x.device) if texture else None
@@ -57,8 +58,7 @@ def _launch_k1(x, k: int, inner: int, texture: bool, mean: bool):
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.yondx_nle_moments(
-        x4.data_ptr(), plane_mean.data_ptr(),
-        out_m.data_ptr() if mean else None, out_v.data_ptr(),
+        x4.data_ptr(), out_m.data_ptr() if mean else None, out_v.data_ptr(),
         out_t.data_ptr() if texture else None,
         L, h, w, C, sl, sy, sx, sc, k, inner, int(mean), int(texture),
         stream)
@@ -74,7 +74,8 @@ def nle_moments(x, k: int, inner: int, texture: bool = True,
     """(mean_k, var_k, texture) of a channels-last stack [..., h, w, C]:
       mean = box_k(x), var = max(box_k(x^2) - mean^2, 0),
       tex  = stdfilt_k(box_inner(x)),
-    reflect-101 borders, per-plane centered. `texture=False` / `mean=False`
+    reflect-101 borders, centered (per plane in the plain version, per
+    tile in K1). `texture=False` / `mean=False`
     skip those maps (returned as None), as the collab fits need.
     Any plane of at least 1x1 is taken: borders reflect periodically
     when a window is wider than the plane, as jnp.pad(mode='reflect').
