@@ -162,6 +162,7 @@ __device__ __forceinline__ void hpass(const float* __restrict__ in, int pi,
       }
       d1[0] = fmaf(s.s, scale, -sub);
       d2[0] = s2.s;
+#pragma unroll 4
       for (int t = 1; t < len; ++t) {
         const float a = row[t + K - 1], b = row[t - 1];
         s.add(a - b);
@@ -173,6 +174,7 @@ __device__ __forceinline__ void hpass(const float* __restrict__ in, int pi,
       float s = 0.f;
       for (int d = 0; d < K; ++d) s += row[d];
       d1[0] = fmaf(s, scale, -sub);
+#pragma unroll 4
       for (int t = 1; t < len; ++t) {
         s += row[t + K - 1] - row[t - 1];
         d1[t] = fmaf(s, scale, -sub);
@@ -195,6 +197,7 @@ __device__ __forceinline__ void vpass(const float* __restrict__ in, int pi,
     float s = 0.f;
     for (int d = 0; d < K; ++d) s += col[d * pi];
     dst[0] = s;
+#pragma unroll 4
     for (int t = 1; t < len; ++t) {
       s += col[(t + K - 1) * pi] - col[(t - 1) * pi];
       dst[t * po] = s;
@@ -224,6 +227,7 @@ __device__ __forceinline__ void vlast(const float* __restrict__ u,
       s2.add(c2[d * pi]);
     }
     epi(r0, q, s.s, s2.s);
+#pragma unroll 4
     for (int t = 1; t < len; ++t) {
       s.add(c1[(t + K - 1) * pi] - c1[(t - 1) * pi]);
       s2.add(c2[(t + K - 1) * pi] - c2[(t - 1) * pi]);
@@ -262,12 +266,34 @@ __global__ void __launch_bounds__(NTHREADS, 2) nle_moments_kernel(Params p) {
     x_off[i] = (int)(reflect101(x0 - g.P + i, p.W) * p.sx);
   __syncthreads();
 
-  // stage: one warp per row, neighbouring lanes on neighbouring columns
-  for (int r = tid / 32; r < g.RH; r += NTHREADS / 32) {
-    const float* srow = src + y_off[r];
-    float* drow = A + r * g.pX;
-#pragma unroll 4
-    for (int q = tid % 32; q < g.RW; q += 32) drow[q] = srow[x_off[q]] - shift;
+  // stage: a warp takes SR rows x SC column chunks of 32 at a time, so
+  // each lane has SR * SC loads in flight (the staging is latency-bound:
+  // one round trip per group, not per row); neighbouring lanes on
+  // neighbouring columns
+  constexpr int WARPS = NTHREADS / 32, SR = 4, SC = 4;
+  const int lane = tid % 32;
+  for (int q0 = 0; q0 < g.RW; q0 += 32 * SC) {
+    for (int r0 = tid / 32; r0 < g.RH; r0 += WARPS * SR) {
+      float v[SR][SC];
+#pragma unroll
+      for (int i = 0; i < SR; ++i) {
+        const int r = r0 + i * WARPS;
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          const int q = q0 + j * 32 + lane;
+          v[i][j] = r < g.RH && q < g.RW ? src[y_off[r] + x_off[q]] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < SR; ++i) {
+        const int r = r0 + i * WARPS;
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          const int q = q0 + j * 32 + lane;
+          if (r < g.RH && q < g.RW) A[r * g.pX + q] = v[i][j] - shift;
+        }
+      }
+    }
   }
   __syncthreads();
 
