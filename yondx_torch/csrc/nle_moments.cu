@@ -116,7 +116,7 @@ struct Params {
   float* mean_out;                          // contiguous [L, H, W, C]
   float* var_out;
   float* tex_out;
-  int L, H, W, C;
+  int H, W, C;
   long long sl, sy, sx, sc;                 // input strides, in elements
   int k, inner;
   int want_mean, want_tex;
@@ -370,7 +370,7 @@ extern "C" int yondx_nle_moments(const void* x, void* mean_out, void* var_out,
   p.mean_out = static_cast<float*>(mean_out);
   p.var_out = static_cast<float*>(var_out);
   p.tex_out = static_cast<float*>(tex_out);
-  p.L = L; p.H = H; p.W = W; p.C = C;
+  p.H = H; p.W = W; p.C = C;
   p.sl = sl; p.sy = sy; p.sx = sx; p.sc = sc;
   p.k = k; p.inner = inner;
   p.want_mean = want_mean; p.want_tex = want_tex;
