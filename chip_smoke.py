@@ -77,17 +77,12 @@ K1_FLAVOURS = {"self": (True, True, 36), "collab_dn": (False, True, 16),
                "collab_lr": (False, False, 15)}
 
 
-def cuda_ms(fn, reps: int, flush=None, host_ahead: bool = True) -> float:
-    """Median device time of fn() in ms from CUDA events, one event pair
-    per call; `flush` runs untimed before each call (cold L2). With
-    host_ahead a spin kernel holds the device while the host enqueues
-    every call, so no host time (the wrapper's Python, the launch) falls
-    inside an event pair; without it, each call is synchronised and its
-    pair also holds the host's enqueue time (PR 4's method)."""
-    torch.cuda.synchronize()
-    if host_ahead:
-        torch.cuda._sleep(int(1e7) * reps)       # ~5 ms a call at ~2 GHz
-    pairs = []
+def cuda_ms(fn, reps: int, flush=None) -> float:
+    """Median time of fn() in ms from CUDA events, one event pair per
+    synchronised call; `flush` runs untimed before each call (cold L2).
+    A pair also holds the host's enqueue of the call (the wrapper's
+    Python and the launch)."""
+    times = []
     for _ in range(reps):
         if flush is not None:
             flush()
@@ -96,11 +91,9 @@ def cuda_ms(fn, reps: int, flush=None, host_ahead: bool = True) -> float:
         a.record()
         fn()
         b.record()
-        pairs.append((a, b))
-        if not host_ahead:
-            torch.cuda.synchronize()
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 _GROUPS = (("K1 nle_moments", ("nle_moments",)),
@@ -251,14 +244,12 @@ def main() -> dict:
     ms_k1, bound_ms, bound_by, _ = timing["self"]
     ms_plain = cuda_ms(lambda: moments.nle_moments_plain(x_a, k, inner), 10,
                        flush)
-    ms_k1_enq = cuda_ms(lambda: moments.nle_moments(x_a, k, inner), 20,
-                        flush, host_ahead=False)
-    say("K1 timing", "a, cold L2, device time (" + peak_key + " peaks): "
-        + "; ".join(f"{f} {ms:.4f} ms, bound {b:.4f} ms by {by} "
-                    f"({mb / 1e6:.1f} MB), {ms / b:.1f}x"
-                    for f, (ms, b, by, mb) in timing.items())
-        + f"; plain (self) {ms_plain:.4f} ms; self with the host's enqueue "
-        f"inside each event pair (PR 4's method) {ms_k1_enq:.4f} ms")
+    say("K1 timing", "a, cold L2, host enqueue included (" + peak_key
+        + " peaks): " + "; ".join(
+            f"{f} {ms:.4f} ms, bound {b:.4f} ms by {by} "
+            f"({mb / 1e6:.1f} MB), {ms / b:.1f}x"
+            for f, (ms, b, by, mb) in timing.items())
+        + f"; plain (self) {ms_plain:.4f} ms")
     del scratch, frame_a, x_a, cases
 
     # 4. card path against the port's CPU path, end to end ------------------

@@ -94,9 +94,8 @@ def test_slice_matches_jax_small_frame(nets):
     """(c) _frame(40, 1024, 3) is a 36x1024 Bayer frame (its levels tile
     H//6 rows), RGGB [1,18,512,4]: planes of 18 rows, fewer than the
     23-sample texture halo, which the JAX package takes by periodic
-    reflection. Narrower frames of 36 rows (_frame(40, 128, 3)) collapse
-    the self estimate to the beta1 clamp on both sides, where fp32 VST
-    cancellation leaves nothing to compare; this one estimates K."""
+    reflection. Unlike the 36x128 frame of test_torch_fused_eager.py,
+    this one estimates K, so its collab round is well conditioned."""
     rggb = _frame(40, 1024, 3)
     assert rggb.shape == (1, 18, 512, 4)
     dn_j, regs_j, dn_t, regs_t, _ = _run_both(nets, rggb, **PRODUCT)

@@ -52,15 +52,12 @@ def run_length(lanes, n, k):
 
 
 def geometry(k, inner, tex):
-    """The source's Geom: halo, staged and intermediate sizes, odd pitches
-    of the arrays read one row per thread, floats in regions A and B."""
+    """The source's Geom, as far as staging needs it: halo, staged tile
+    and the x-moment rows and t1 columns."""
     kh = k // 2
     P = kh + (inner // 2 if tex else 0)
-    RH, RW, MH, TWK = TH + 2 * P, TW + 2 * P, TH + 2 * kh, TW + 2 * kh
-    pX, pH, pT = RW | 1, TW | 1, TWK | 1
-    a = max(RH * pX, MH * pT if tex else 0)
-    b = max(2 * MH * pH, MH * pX if tex else 0, RH + RW)
-    return dict(kh=kh, P=P, RH=RH, RW=RW, MH=MH, TWK=TWK, a=a, b=b)
+    return dict(kh=kh, P=P, RH=TH + 2 * P, RW=TW + 2 * P, MH=TH + 2 * kh,
+                TWK=TW + 2 * kh)
 
 
 def reflect101(i, n):
@@ -206,19 +203,3 @@ def test_k1_plan_constant_plane_is_exact():
     m, v, t = k1_plan(x, K, INNER, True, True)
     assert torch.equal(m, x)
     assert float(v.abs().max()) == 0.0 and float(t.abs().max()) == 0.0
-
-
-def test_k1_shared_memory_keeps_two_blocks_per_sm():
-    """The source's per-block arithmetic: every flavour fits two blocks of
-    NTHREADS on an H100 SM (228 KB of shared memory, 1 KB reserved per
-    block), and runs stay within MAX_RUN."""
-    assert NTHREADS == 256
-    for tex in (True, False):
-        g = geometry(K, INNER, tex)
-        block = 4 * (g["a"] + g["b"])
-        assert 2 * (block + 1024) <= 228 * 1024, (tex, block)
-        runs = [run_length(g["MH"], TW, K), run_length(TW, TH, K)]
-        if tex:
-            runs += [run_length(g["RW"], g["MH"], INNER),
-                     run_length(g["MH"], g["TWK"], INNER)]
-        assert all(1 <= r <= MAX_RUN for r in runs)
