@@ -4,27 +4,37 @@
 
 Builds the port's CUDA kernel K1 (NLE box moments) with plain nvcc, holds
 it against its plain PyTorch version on the card in its three flavours
-(self fit; collab fit of dn and of lr) and times each, holds the card path
+(self fit; collab fit of dn and of lr) at the fused path's band shape and
+the engine's whole-plane shape and times each, holds the card path
 against the port's CPU path end to end on a small frame, then drives the
 product path (s2dt16 net from the committed checkpoint, bf16, robust NLE,
 refine, adaptive guidance, rescue policy, banded NLE) on a synthetic
-3072x4096 Bayer frame and checks the result. Every phase prints one line
-with its elapsed seconds; any failure raises (exit code != 0). The last
-two lines are the kernels' JSON record and the device JSON record.
+3072x4096 Bayer frame and checks the result. It then drives the
+ANY-camera CLI path (`yondx_torch.cli.yond` with
+runfiles/YOND/ANY_simple+full_pre_grumix.yml: the gru32 flagship in fp32,
+whole-frame NLE, tiles of 1024 with halo 64, batch 8) on the same frame,
+holds that engine on the card against the CPU on a small frame, and runs
+`python -m yondx_torch.bench --arch gru32` once. Every phase prints one
+line with its elapsed seconds; any failure raises (exit code != 0). The
+last two lines are the kernels' JSON record and the device JSON record.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 T0 = time.perf_counter()
+REPO = os.path.dirname(os.path.abspath(__file__))
+ANY_RUNFILE = "runfiles/YOND/ANY_simple+full_pre_grumix.yml"
 
 
 def say(phase: str, msg: str) -> None:
@@ -106,15 +116,15 @@ _GROUPS = (("K1 nle_moments", ("nle_moments",)),
            ("elementwise", ("elementwise", "vectorized", "unrolled")))
 
 
-def profile_main_path(fused, rggb, scale) -> None:
-    """One main-path run under torch.profiler: device busy time against
-    the host wall time, and device time by kernel group and top kernels."""
+def profile_run(label: str, run) -> None:
+    """One run() under torch.profiler: device busy time against the host
+    wall time, and device time by kernel group and top kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        fused(rggb, scale)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = []
@@ -133,7 +143,7 @@ def profile_main_path(fused, rggb, scale) -> None:
                       if any(w in low for w in words)), "other")
         groups[group] = groups.get(group, 0.0) + ms
     top = sorted(kernels, reverse=True)[:8]
-    say("profile", f"wall {wall_ms:.2f} ms (profiled), device busy "
+    say(label, f"wall {wall_ms:.2f} ms (profiled), device busy "
         f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), {len(kernels)} "
         "kernel names; by group ms: " + ", ".join(
             f"{g} {v:.2f}" for g, v in sorted(groups.items(),
@@ -142,11 +152,176 @@ def profile_main_path(fused, rggb, scale) -> None:
                                 for ms, n, key in top))
 
 
+def net_flop_per_pixel(net) -> float:
+    """FLOP (2 x multiply-adds) of the net's convolutions per RGGB pixel,
+    counted with forward hooks on one 64x64 input."""
+    from torch import nn
+    macs = [0]
+
+    def hook(m, inp, out):
+        if isinstance(m, nn.Conv2d):
+            macs[0] += out.numel() * m.in_channels * m.kernel_size[0] \
+                * m.kernel_size[1] // m.groups
+        elif isinstance(m, nn.ConvTranspose2d):
+            macs[0] += inp[0].numel() * m.out_channels * m.kernel_size[0] \
+                * m.kernel_size[1]
+
+    dev = next(net.parameters()).device
+    hooks = [m.register_forward_hook(hook) for m in net.modules()]
+    with torch.no_grad():
+        net(torch.rand((1, 64, 64, 4), device=dev),
+            torch.full((1,), 0.1, device=dev))
+    for h in hooks:
+        h.remove()
+    return 2.0 * macs[0] / (64 * 64)
+
+
+def any_params():
+    """The CLI's frame parameters (yond --wp 1023 --bl 64 --ratio 1)."""
+    return {"wp": 1023, "bl": 64, "ratio": 1.0, "scale": 959.0,
+            "gain": 1.0, "sigma": 0.0}
+
+
+def cli_path(noisy, clean) -> dict:
+    """The ANY-camera CLI path on the 3072x4096 frame: one run of the
+    CLI as a user types it (K1 counts read around it), then its engine
+    timed on the same frame and profiled once. fp32, TF32 off."""
+    from yondx_torch.cli import yond
+    from yondx_torch.nle import moments
+    H, W = noisy.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        fin, fout = os.path.join(tmp, "frame.npy"), os.path.join(tmp,
+                                                                 "dn.npy")
+        np.save(fin, noisy)
+        moments.reset_launches()
+        t = time.perf_counter()
+        app = yond.main(["-f", ANY_RUNFILE, "--input", fin, "--output",
+                         fout])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        launches = moments.LAUNCHES["nle_moments"]
+        out = np.load(fout)
+    if out.shape != (H, W) or not np.isfinite(out).all():
+        raise AssertionError(f"CLI output {out.shape} not finite {H}x{W}")
+    if out.min() < 0.0 or out.max() > 1.0:
+        raise AssertionError(f"CLI output outside [0, 1]: {out.min()}, "
+                             f"{out.max()}")
+    p_in, p_out = psnr(noisy, clean), psnr(out, clean)
+    say("cli path", f"yond --input ({H}x{W}) in {cli_s:.2f} s (first run: "
+        f"model load and cuDNN planning included); PSNR {p_in:.2f} -> "
+        f"{p_out:.2f} dB; K1 launches {launches}")
+    if p_out < p_in + 10.0:
+        raise AssertionError(f"CLI PSNR gain {p_out - p_in:.2f} dB < 10 dB")
+    # one self fit + two collab fits (lr, dn) on whole planes
+    if launches != 3:
+        raise AssertionError(f"K1 launched {launches} times in the CLI "
+                             "run, expected 3")
+
+    engine = app.engine
+
+    def frame():
+        return engine.iter_denoise_tiled({"lr": noisy}, any_params(),
+                                         tile=1024, halo=64)
+
+    frame()
+    torch.cuda.synchronize()
+    moments.reset_launches()
+    runs, times, fired = 3, [], 0
+    for _ in range(runs):
+        t = time.perf_counter()
+        res = frame()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        fired += sum(sig["fired"] for sig in res["signals"])
+    timed_launches = moments.LAUNCHES["nle_moments"]
+    dt = float(np.median(times))
+    k_est = float(res["regs"][0][0] * 959)
+    dn = res["raw_dns"][-1]
+    say("cli path", f"engine.iter_denoise_tiled {H}x{W}, tiles 1024/64, "
+        f"batch 8: {dt * 1e3:.2f} ms/frame, {H * W / 1e6 / dt:.2f} MP/s "
+        f"(median of {runs}; runs {[round(x * 1e3, 2) for x in times]} "
+        f"ms); PSNR {p_in:.2f} -> {psnr(dn, clean):.2f} dB; K_est "
+        f"{k_est:.3f}; second pass fired {fired}/{runs}; K1 launches "
+        f"{timed_launches}; regs {res['regs']}")
+    if abs(k_est - 8.74) > 0.1 * 8.74:
+        raise AssertionError(f"CLI K_est {k_est:.3f} not within 10% of "
+                             "8.74")
+    if timed_launches != 3 * runs:
+        raise AssertionError(f"K1 launched {timed_launches} times in "
+                             f"{runs} frames, expected {3 * runs}")
+    from yondx_torch.core.tiling import tile_grid
+    ny, nx, _, _ = tile_grid(H, W, 1024, 64)
+    n_tiles = -(-ny * nx // 8) * 8              # padded to the batch of 8
+    side = 1024 // 2 + 64                       # RGGB side of a tile
+    per_px = net_flop_per_pixel(app.model)
+    say("cli path", f"net {per_px * n_tiles * side ** 2 / 1e12:.3f} TFLOP a "
+        f"pass ({n_tiles} tiles of {side}x{side}x4, {per_px / 1e6:.4f} "
+        "MFLOP per RGGB pixel)")
+    profile_run("cli profile", frame)
+    return {"launches": launches, "ms_frame": dt * 1e3}
+
+
+def engine_card_vs_cpu() -> None:
+    """The CLI's engine (gru32 fp32) on a 504x768 frame, tiles of 256 with
+    halo 64 (2x3 tiles, one padded chunk of 8), on the card and on the
+    CPU: regs of both rounds to the larger of rtol 1e-3 and the card's
+    own +-1e-6 frame-shift spread (as phase 4), the output to 1e-3."""
+    from yondx_torch.cli import yond
+    small, _ = make_frame(512, 768, seed=3)
+    res = {}
+    for d in ("cuda", "cpu"):
+        engine = yond.YOND(["-f", ANY_RUNFILE, "--device", d]).engine
+        res[d] = engine.iter_denoise_tiled({"lr": small}, any_params(),
+                                           tile=256, halo=64)
+        if d == "cuda":
+            spread = np.max([np.abs(np.array(engine.iter_denoise_tiled(
+                {"lr": small + s}, any_params(), tile=256,
+                halo=64)["regs"]) - np.array(res[d]["regs"]))
+                for s in (1e-6, -1e-6)], axis=0)
+    rg, rc = np.array(res["cuda"]["regs"]), np.array(res["cpu"]["regs"])
+    allowed = np.maximum(1e-3 * np.abs(rc), spread)
+    err_r = np.abs(rg - rc)
+    err_o = float(np.abs(res["cuda"]["raw_dns"][-1]
+                         - res["cpu"]["raw_dns"][-1]).max())
+    say("engine cuda vs cpu", f"{small.shape[0]}x{small.shape[1]}: regs "
+        f"cuda {rg.tolist()} cpu {rc.tolist()}; |diff| {err_r.tolist()}, "
+        f"allowed {allowed.tolist()} (+-1e-6 shift spread on the card "
+        f"{spread.tolist()}); output max abs diff {err_o:.3e}")
+    if not (err_r <= allowed).all():
+        raise AssertionError("engine regs disagree between cuda and cpu")
+    if err_o > 1e-3:
+        raise AssertionError(f"engine output differs by {err_o} > 1e-3")
+
+
+def bench_gru32() -> None:
+    """`python -m yondx_torch.bench --arch gru32` as a user runs it; its
+    JSON line is printed, and its PSNR gain and K_est checked."""
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "yondx_torch.bench",
+                          "--arch", "gru32"], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"bench --arch gru32 failed:\n{res.stderr}")
+    line = res.stdout.strip().splitlines()[-1]
+    rec = json.loads(line)
+    print(line, flush=True)
+    m = re.search(r"psnr ([\d.]+)->([\d.]+)dB; K_est=([\d.]+)",
+                  rec["metric"])
+    p_in, p_out, k_est = (float(v) for v in m.groups())
+    say("bench gru32", f"{rec['value']} MP/s in {time.perf_counter() - t:.1f}"
+        f" s of process; PSNR {p_in} -> {p_out} dB; K_est {k_est}")
+    if p_out < p_in + 10.0:
+        raise AssertionError(f"bench PSNR gain {p_out - p_in:.2f} dB < 10")
+    if abs(k_est - 8.74) > 0.1 * 8.74:
+        raise AssertionError(f"bench K_est {k_est} not within 10% of 8.74")
+
+
 def main() -> dict:
     # 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs one CUDA card")
+    os.chdir(REPO)           # the CLI reads runfiles/ and checkpoints/
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -159,7 +334,7 @@ def main() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     say("device", f"{name} x{torch.cuda.device_count()}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; TF32 off for "
-        "phases 3-4")
+        "phases 3-4 and 6-7")
 
     # 2. build -------------------------------------------------------------
     from yondx_torch import cuda_build
@@ -176,6 +351,7 @@ def main() -> dict:
     frame_a = torch.rand((1, 1536, 2048, 4), generator=g, device=dev) * 0.7
     x_a = _take_bands(frame_a, 6, 2, 3, 256)      # main-path band view
     cases = (("a [1,2,256,2048,4] bands", x_a),
+             ("w [1,1536,2048,4] whole plane", frame_a),
              ("b [1,300,520,4]", torch.rand((1, 300, 520, 4), generator=g,
                                             device=dev)),
              ("c constant", torch.full((1, 64, 96, 4), 0.37, device=dev)),
@@ -228,28 +404,38 @@ def main() -> dict:
     def flush():
         scratch.zero_()
 
-    # each flavour at the main-path band shape, cold L2, against its own
-    # bound: one read of the input and one write per map
-    n_out = x_a.numel()
+    # each flavour at the fused path's band shape and at the engine's
+    # whole-plane shape, cold L2, against its own bound: one read of the
+    # input and one write per map
     peak_key, (bw, fp32) = card_peaks(name)
-    timing = {}
-    for flavour, (texture, mean, ops) in K1_FLAVOURS.items():
-        ms = cuda_ms(lambda: moments.nle_moments(x_a, k, inner, texture,
-                                                 mean), 20, flush)
-        bytes_moved = 4 * n_out * (2 + texture + mean)
-        t_bytes, t_ops = bytes_moved / bw * 1e3, n_out * ops / fp32 * 1e3
-        timing[flavour] = (ms, max(t_bytes, t_ops),
-                           "bytes" if t_bytes >= t_ops else "operations",
-                           bytes_moved)
+
+    def time_flavours(x):
+        n_out, timing = x.numel(), {}
+        for flavour, (texture, mean, ops) in K1_FLAVOURS.items():
+            ms = cuda_ms(lambda: moments.nle_moments(x, k, inner, texture,
+                                                     mean), 20, flush)
+            bytes_moved = 4 * n_out * (2 + texture + mean)
+            t_bytes, t_ops = bytes_moved / bw * 1e3, n_out * ops / fp32 * 1e3
+            timing[flavour] = (ms, max(t_bytes, t_ops),
+                               "bytes" if t_bytes >= t_ops else "operations",
+                               bytes_moved)
+        return timing
+
+    timing = time_flavours(x_a)
+    timing_w = time_flavours(frame_a)
     ms_k1, bound_ms, bound_by, _ = timing["self"]
     ms_plain = cuda_ms(lambda: moments.nle_moments_plain(x_a, k, inner), 10,
                        flush)
-    say("K1 timing", "a, cold L2, host enqueue included (" + peak_key
-        + " peaks): " + "; ".join(
-            f"{f} {ms:.4f} ms, bound {b:.4f} ms by {by} "
-            f"({mb / 1e6:.1f} MB), {ms / b:.1f}x"
-            for f, (ms, b, by, mb) in timing.items())
-        + f"; plain (self) {ms_plain:.4f} ms")
+    ms_plain_w = cuda_ms(lambda: moments.nle_moments_plain(frame_a, k,
+                                                           inner), 5, flush)
+    for label, tim, plain in (("a", timing, ms_plain),
+                              ("w", timing_w, ms_plain_w)):
+        say("K1 timing", label + ", cold L2, host enqueue included ("
+            + peak_key + " peaks): " + "; ".join(
+                f"{f} {ms:.4f} ms, bound {b:.4f} ms by {by} "
+                f"({mb / 1e6:.1f} MB), {ms / b:.1f}x"
+                for f, (ms, b, by, mb) in tim.items())
+            + f"; plain (self) {plain:.4f} ms")
     del scratch, frame_a, x_a, cases
 
     # 4. card path against the port's CPU path, end to end ------------------
@@ -258,9 +444,8 @@ def main() -> dict:
     from yondx_torch.models.unets import load_guided_s2d
     from yondx_torch.pipeline.fused import make_fused_blind_denoiser
     from yondx_torch.vst.lut import BiasLUT
-    ck = find_checkpoint(os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "checkpoints", "Gaussian"),
-        "Gaussian_GRUS2DT_mix_1to50c_norm")
+    ck = find_checkpoint(os.path.join(REPO, "checkpoints", "Gaussian"),
+                         "Gaussian_GRUS2DT_mix_1to50c_norm")
     if ck is None:
         raise FileNotFoundError("s2dt16 checkpoint missing")
     lut = BiasLUT().lut
@@ -341,7 +526,19 @@ def main() -> dict:
                              f"frames, expected {3 * runs}")
 
     # where the time goes: one more main-path run under the profiler
-    profile_main_path(fused, rggb, scale)
+    profile_run("profile", lambda: fused(rggb, scale))
+    del fused, net, dn, rggb
+
+    # 6. the ANY-camera CLI path (gru32 fp32, whole-frame NLE, tiled) ----
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cli = cli_path(noisy, clean)
+
+    # 7. its engine on the card against the CPU ----------------------------
+    engine_card_vs_cpu()
+
+    # 8. the port's bench with the gru32 flagship ---------------------------
+    bench_gru32()
 
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
@@ -349,7 +546,15 @@ def main() -> dict:
         "replaces": "yondx/nle/pallas_ops.py:54",
         "launches": launches, "max_abs_err": max_err,
         "ms": ms_k1, "plain_ms": ms_plain, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}
+        "bound_by": bound_by, "library_ms": None,
+        # the engine's shape: whole planes, 3 launches a frame on the CLI
+        # path (self 1, collab 2)
+        "whole_plane": {
+            "shape": [1, 1536, 2048, 4], "launches": cli["launches"],
+            "ms": {f: t[0] for f, t in timing_w.items()},
+            "bound_ms": {f: t[1] for f, t in timing_w.items()},
+            "bound_by": {f: t[2] for f, t in timing_w.items()},
+            "plain_ms": ms_plain_w}}]}
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

@@ -1,0 +1,58 @@
+"""The card machine has torch, numpy and scipy but no jax, flax, msgpack
+or PyYAML, and the port must never reach the JAX package. In a fresh
+interpreter whose import system refuses those packages, every module of
+yondx_torch and chip_smoke.py must import.
+"""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import yondx_torch
+
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+SCRIPT = r"""
+import importlib, importlib.util, pkgutil, sys
+
+REFUSED = {"jax", "jaxlib", "flax", "msgpack", "yaml", "yondx"}
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(f"refused: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+for name in REFUSED:
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        continue
+    raise SystemExit(f"the guard let {name} through")
+
+import yondx_torch
+names = ["yondx_torch"] + [m.name for m in pkgutil.walk_packages(
+    yondx_torch.__path__, "yondx_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+if leaked:
+    raise SystemExit(f"refused modules present: {leaked}")
+print(" ".join(names))
+"""
+
+
+def test_port_imports_without_jax_flax_msgpack_yaml_or_yondx():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    # every module of the package was imported
+    want = ["yondx_torch"] + [m.name for m in pkgutil.walk_packages(
+        yondx_torch.__path__, "yondx_torch.")]
+    assert res.stdout.split() == want

@@ -1,0 +1,162 @@
+"""`python -m yondx_torch.cli.yond`: blind raw denoising of one frame on
+the GPU (port of yondx/cli/yond.py:32-284, the --input path).
+
+    python -m yondx_torch.cli.yond -f runfiles/YOND/ANY_simple+full_pre_grumix.yml \
+        --input frame.npy --output dn.npy
+
+The runfile's `arch` and checkpoint build the net, a VSTDenoiser with
+the pipeline block's refine / sigma_corr extras, the committed bias LUT
+and a YONDEngine; the frame then runs self NLE -> tiled denoise ->
+collab NLE -> tiled second pass (when the rescue gate fires). Runs on
+`--device` ("cuda" by default; JAX's --cpu means --device cpu). Without
+--input the runfile's eval/test mode runs the SIDD/DND/ELD harnesses,
+which are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+from ..config import load_runfile
+from ..core.logging import log
+from ..eval.fullframe import denoise_any
+from ..io.ckpt import find_checkpoint
+from ..models.registry import is_guided
+from ..models.unets import load_model
+from ..pipeline.denoiser import VSTDenoiser
+from ..pipeline.engine import PipelineConfig, YONDEngine
+from ..vst.lut import BiasLUT
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("--runfile", "-f",
+                   default="runfiles/YOND/SIDD_simple+full_pre_grumix.yml")
+    p.add_argument("--mode", "-m", default="eval")
+    p.add_argument("--debug", action="store_true", default=False)
+    p.add_argument("--nofig", action="store_true", default=True)
+    p.add_argument("--nohost", action="store_true", default=False)
+    p.add_argument("--limit", type=int, default=None,
+                   help="evaluate only the first N scenes")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the pipeline runs on")
+    p.add_argument("--cpu", action="store_true", default=False,
+                   help="same as --device cpu")
+    p.add_argument("--input", default=None,
+                   help="ANY mode: blind-denoise one raw file "
+                        "(npy/mat/png/raw; camera raws need rawpy)")
+    p.add_argument("--output", default=None, help="ANY mode output npy")
+    p.add_argument("--wp", type=int, default=1023)
+    p.add_argument("--bl", type=int, default=64)
+    p.add_argument("--ratio", type=float, default=1.0)
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="row-shard the frame over N devices (not ported "
+                        "yet)")
+    p.add_argument("--tile", type=int, default=1024,
+                   help="ANY mode: overlap-tile size in bayer px")
+    return p
+
+
+def load_model_params(arch, model_name, fast_ckpt, device=None):
+    """The runfile's net with its checkpoint (search order best -> last
+    -> bare). A missing checkpoint raises: random weights cannot be made
+    to match the JAX package's flax init."""
+    path = find_checkpoint(fast_ckpt, model_name)
+    if path is None:
+        raise FileNotFoundError(f"no checkpoint {model_name}[_best_model|"
+                                f"_last_model].ckpt under {fast_ckpt!r}")
+    model = load_model(arch, path, device=device)
+    log(f"Loaded weights from {path}")
+    return model
+
+
+class YOND:
+    """The runfile-driven application object."""
+
+    def __init__(self, argv=None):
+        self.parser = build_parser().parse_args(argv)
+        if self.parser.mesh:
+            raise NotImplementedError(
+                "--mesh (row-sharding over several devices) is not ported "
+                "yet (ROADMAP item 11)")
+        self.device = "cpu" if self.parser.cpu else self.parser.device
+        self.args = load_runfile(self.parser.runfile, mode=self.parser.mode)
+        self.mode = self.args["mode"]
+        self.arch = self.args["arch"]
+        self.pipe = PipelineConfig.from_dict(self.args["pipeline"])
+        self.model_name = self.args["model_name"]
+        self.method_name = self.args["method_name"]
+        self.fast_ckpt = self.args["fast_ckpt"]
+        self.sample_dir = os.path.join(self.args.get("result_dir", "images"),
+                                       self.method_name)
+        os.makedirs(self.sample_dir, exist_ok=True)
+        os.makedirs("./logs", exist_ok=True)
+        self.logfile = f"./logs/log_{self.method_name}.log"
+        est = [k for k, v in self.args.items()
+               if k.startswith("est_") and isinstance(v, dict)]
+        if est:
+            raise NotImplementedError(
+                f"runfile blocks {est}: the est_* noise-estimation nets "
+                "are not ported yet (ROADMAP item 8)")
+        if self.pipe.denoiser_type.lower() == "bm3d":
+            raise NotImplementedError(
+                "denoiser_type: bm3d is not ported yet (ROADMAP item 7)")
+
+        self.model = load_model_params(self.arch, self.model_name,
+                                       self.fast_ckpt, device=self.device)
+        n = sum(p.numel() for p in self.model.parameters())
+        for line in (f"Method Name:\t{self.method_name}",
+                     f"Model Name:\t{self.model_name}",
+                     f"Architecture:\t{self.arch['name']}",
+                     f"Parameters:\t{n / 1e6:.2f}M",
+                     f"Device:\t{self.device}"):
+            log(line, logfile=self.logfile, notime=True)
+        ex = self.pipe.extras
+        self.denoiser = VSTDenoiser(
+            self.model, guided=is_guided(self.arch),
+            bias_corr=self.pipe.bias_corr, vst_type=self.pipe.vst_type,
+            refine=bool(ex.get("refine", False)),
+            refine_floor=ex.get("refine_floor", "bucket"),
+            refine_shrink=bool(ex.get("refine_shrink", True)),
+            refine_shrink_lam=float(ex.get("refine_shrink_lam", 1.0)),
+            refine_shrink_full_alpha=float(
+                ex.get("refine_shrink_full_alpha", 1.0)),
+            refine_shrink_mode=str(ex.get("refine_shrink_mode", "oriented")),
+            sigma_corr=ex.get("sigma_corr"), device=self.device)
+        self.engine = YONDEngine(self.denoiser, self.pipe, biaslut=BiasLUT(),
+                                 logfile=self.logfile)
+
+    def denoise_any(self, path: str, out: str | None = None):
+        return denoise_any(self.engine, path, wp=self.parser.wp,
+                           bl=self.parser.bl, ratio=self.parser.ratio,
+                           tile=self.parser.tile, out_path=out)
+
+    def eval(self, limit=None):
+        raise NotImplementedError(
+            "the eval harnesses (SIDD / DND / ELD / LRID datasets) are not "
+            "ported yet (ROADMAP item 8); pass --input for one frame")
+
+    def benchmark(self, limit=None):
+        raise NotImplementedError(
+            "the test harnesses (SIDD / DND benchmark submissions) are not "
+            "ported yet (ROADMAP item 8); pass --input for one frame")
+
+
+def main(argv=None):
+    app = YOND(argv)
+    if app.parser.input:
+        out = app.parser.output or (os.path.splitext(
+            app.parser.input)[0] + "_denoised.npy")
+        app.denoise_any(app.parser.input, out)
+        log(f"Denoised frame saved to {out}")
+        return app
+    if "eval" in app.mode:
+        app.eval()
+    if "test" in app.mode:
+        app.benchmark()
+    return app
+
+
+if __name__ == "__main__":
+    main()

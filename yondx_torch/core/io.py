@@ -1,0 +1,53 @@
+"""Multi-format frame loader (port of yondx/core/io.py).
+
+Formats: .npy, .mat (scipy.io; MATLAB v7.3 files through h5py, key 'x'
+or the first key), .png/.jpg/.bmp (BGR -> RGB through cv2), .raw (fixed
+1440x2560 uint16). Camera raws (.ARW/.DNG/.NEF/.CR2) need rawpy. cv2,
+h5py and rawpy are optional: a format whose package is absent raises
+ImportError.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+RAW_EXTS = {".arw", ".dng", ".nef", ".cr2"}
+
+
+def _need(module: str, ext: str):
+    try:
+        return __import__(module)
+    except ImportError as e:
+        raise ImportError(f"loading {ext} files requires {module}, which "
+                          "is not installed") from e
+
+
+def dataload(path: str):
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".npy":
+        return np.load(path)
+    if ext == ".mat":
+        import scipy.io as sio
+        try:
+            mat = sio.loadmat(path)
+        except NotImplementedError:  # MATLAB v7.3 -> HDF5
+            h5py = _need("h5py", ext)
+            with h5py.File(path, "r") as f:
+                key = "x" if "x" in f else list(f.keys())[0]
+                return np.array(f[key]).T
+        keys = [k for k in mat if not k.startswith("__")]
+        return mat["x"] if "x" in mat else mat[keys[0]]
+    if ext in (".png", ".jpg", ".jpeg", ".bmp"):
+        cv2 = _need("cv2", ext)
+        img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if img is None:
+            raise FileNotFoundError(path)
+        return img[:, :, ::-1] if img.ndim == 3 else img   # BGR -> RGB
+    if ext == ".raw":
+        return np.fromfile(path, np.uint16).reshape(1440, 2560)
+    if ext in RAW_EXTS:
+        rawpy = _need("rawpy", ext)
+        with rawpy.imread(path) as raw:
+            return raw.raw_image_visible.copy()
+    raise ValueError(f"unsupported format: {path}")

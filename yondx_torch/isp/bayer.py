@@ -1,8 +1,11 @@
-"""Bayer <-> packed RGGB planes (port of yondx/isp/bayer.py:25-44).
+"""Bayer <-> packed RGGB planes and CFA rotation (port of
+yondx/isp/bayer.py:25-85).
 
 RGGB channel order = [x[0::2,0::2], x[0::2,1::2], x[1::2,0::2], x[1::2,1::2]].
 """
 from __future__ import annotations
+
+import torch
 
 
 def bayer2rggb(bayer):
@@ -21,3 +24,32 @@ def rggb2bayer(rggb):
     x = rggb.reshape(shp[:-3] + (h, w, 2, 2))
     x = x.movedim(-2, -3)                       # [..., h, 2, w, 2]
     return x.reshape(shp[:-3] + (h * 2, w * 2))
+
+
+# SIDD bayer_2by2 patterns (1=R, 2=G, 3=B) -> rot90 count to RGGB
+# (yondx/isp/bayer.py:58-64)
+_PATTERN_TO_K = {
+    ((1, 2), (2, 3)): 0,  # RGGB
+    ((2, 1), (3, 2)): 3,  # GRBG
+    ((2, 3), (1, 2)): 1,  # GBRG
+    ((3, 2), (2, 1)): 2,  # BGGR
+}
+
+
+def rot_bayer_k(bayer_2by2) -> int:
+    """Pattern -> rot90 count that maps the CFA to RGGB."""
+    key = tuple(tuple(int(v) for v in row) for row in bayer_2by2)
+    if key not in _PATTERN_TO_K:
+        raise ValueError(f"Unknown Bayer pattern: {bayer_2by2}")
+    return _PATTERN_TO_K[key]
+
+
+def rot_bayer(image, bayer_2by2, rev: bool = False, axes=(-2, -1)):
+    """Rotate a bayer-domain tensor so its CFA reads RGGB; `rev=True`
+    undoes it."""
+    k = rot_bayer_k(bayer_2by2)
+    if rev:
+        k = (4 - k) % 4
+    if k == 0:
+        return image
+    return torch.rot90(image, k=k, dims=axes)

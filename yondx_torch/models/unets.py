@@ -1,8 +1,9 @@
-"""GuidedResUnetS2D, the shipped s2d SNR-Net (port of yondx/models/unets.py).
+"""The guided SNR-Nets (port of yondx/models/unets.py): GuidedResUnet,
+the gru32 flagship, and GuidedResUnetS2D, the s2d-packed variant.
 
-Takes and returns channels-last [B, H, W, C] tensors like the flax model;
-inside it runs NCHW (a permuted view, so a channels-last input stays
-channels-last in memory, which is what cuDNN wants on the GPU).
+Both take and return channels-last [B, H, W, C] tensors like the flax
+models; inside they run NCHW (a permuted view, so a channels-last input
+stays channels-last in memory, which is what cuDNN wants on the GPU).
 """
 from __future__ import annotations
 
@@ -17,6 +18,73 @@ from ..io.ckpt import load_checkpoint
 from .blocks import (GuidedResidualBlock, StridedDown, UpConvT, conv1x1,
                      conv3x3, data_inv_normalize, data_normalize)
 from .convert import params_to_state_dict
+
+
+class _GuidedUNetBase(nn.Module):
+    """Encoder/decoder wiring of GuidedResUnet (yondx/models/unets.py:
+    31-83) on NCHW tensors: conv_in -> [block, stride-2 conv] x4 ->
+    bottleneck block -> [2x2 deconv, skip concat, block] x4 -> 1x1 out,
+    with the residual add and per-sample max norm options."""
+
+    def __init__(self, args: Dict[str, Any], in_lrelu_slope: float = 0.01):
+        super().__init__()
+        nf = args["nf"]
+        self.res = args.get("res", False)
+        self.norm = args.get("norm", False)
+        self.in_lrelu_slope = in_lrelu_slope
+        self.conv_in = conv3x3(args.get("in_nc", 4), nf)
+        feats = [nf, nf * 2, nf * 4, nf * 8]
+        cin = nf
+        for i, f in enumerate(feats):
+            setattr(self, f"conv{i + 1}", GuidedResidualBlock(cin, f))
+            nxt = feats[i + 1] if i + 1 < len(feats) else nf * 16
+            setattr(self, f"pool{i + 1}", StridedDown(f, nxt))
+            cin = nxt
+        self.conv5 = GuidedResidualBlock(cin, nf * 16)
+        cin = nf * 16
+        for i, f in enumerate([nf * 8, nf * 4, nf * 2, nf]):
+            setattr(self, f"upv{6 + i}", UpConvT(cin, f))
+            setattr(self, f"conv{6 + i}", GuidedResidualBlock(2 * f, f))
+            cin = f
+        self.conv10 = conv1x1(nf, args["out_nc"])
+
+    def forward(self, x, t):
+        lb = ub = None
+        if self.norm:
+            x, lb, ub = data_normalize(x)
+            t = t / (ub - lb).reshape(-1)
+        inp = x
+        h = F.leaky_relu(self.conv_in(x), self.in_lrelu_slope)
+        skips = []
+        for i in range(1, 5):
+            h = getattr(self, f"conv{i}")(h, t)
+            skips.append(h)
+            h = getattr(self, f"pool{i}")(h)
+        h = self.conv5(h, t)
+        for i in range(4):
+            h = getattr(self, f"upv{6 + i}")(h)
+            h = torch.cat([h, skips[-1 - i]], dim=1)
+            h = getattr(self, f"conv{6 + i}")(h, t)
+        out = self.conv10(h)
+        if self.res:
+            out = out + inp[:, :4]
+        if self.norm:
+            out = data_inv_normalize(out, lb, ub)
+        return out
+
+
+class GuidedResUnet(nn.Module):
+    """The gru32 flagship SNR-Net (nf=32: 11.17M parameters). Its body
+    is the submodule `unet`, as in flax, so weights map by path."""
+
+    def __init__(self, args: Dict[str, Any]):
+        super().__init__()
+        self.unet = _GuidedUNetBase(args)
+
+    def forward(self, x, t):
+        """x: [B, H, W, C] channels-last, t: [B] guidance -> [B, H, W, C]."""
+        x = x.permute(0, 3, 1, 2)
+        return self.unet(x, t.to(x.dtype)).permute(0, 2, 3, 1)
 
 
 def _s2d2(x):
@@ -102,22 +170,34 @@ class GuidedResUnetS2D(nn.Module):
         return out.permute(0, 2, 3, 1)
 
 
-# bench.py's shipped s2dt16 architecture
+# bench.py's architectures (bench.py:96-117): the shipped s2dt16, the
+# s2d64 net it was distilled from (no tail), and the gru32 flagship
 S2DT16_ARCH = {"name": "GuidedResUnetS2D", "guided": True, "in_nc": 4,
                "out_nc": 4, "nf": 64, "nframes": 1, "res": True,
                "norm": True, "out_k": 3, "tail_nf": 16}
+S2D64_ARCH = {k: v for k, v in S2DT16_ARCH.items() if k != "tail_nf"}
+GRU32_ARCH = {"name": "GuidedResUnet", "guided": True, "in_nc": 4,
+              "out_nc": 4, "nf": 32, "nframes": 1, "res": True,
+              "norm": True}
 
 
-def load_guided_s2d(ckpt_path: str, device=None,
-                    dtype=torch.float32) -> GuidedResUnetS2D:
-    """Build the s2dt16 net and load a committed flax checkpoint into it,
-    in eval mode on `device` (default "cuda") with parameters in
-    `dtype`."""
+def load_model(arch: Dict[str, Any], ckpt_path: str, device=None,
+               dtype=torch.float32) -> nn.Module:
+    """Build the net of a YAML `arch` dict and load a committed flax
+    checkpoint into it (every parameter, strictly), in eval mode on
+    `device` (default "cuda") with parameters in `dtype`."""
+    from .registry import build_model     # the registry imports this module
     dev = resolve_device(device)
-    net = GuidedResUnetS2D(S2DT16_ARCH)
+    net = build_model(arch)
     sd = params_to_state_dict(load_checkpoint(ckpt_path)["params"])
     net.load_state_dict(sd, strict=True)
     net = net.to(device=dev, dtype=dtype).eval()
     if dev.type == "cuda":
         net = net.to(memory_format=torch.channels_last)
     return net
+
+
+def load_guided_s2d(ckpt_path: str, device=None,
+                    dtype=torch.float32) -> GuidedResUnetS2D:
+    """The s2dt16 net with a committed checkpoint (see load_model)."""
+    return load_model(S2DT16_ARCH, ckpt_path, device=device, dtype=dtype)

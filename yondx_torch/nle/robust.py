@@ -1,5 +1,6 @@
 """Robust Poisson-Gaussian NLE: per-intensity-bucket wavelet MAD (port of
-yondx/nle/robust.py:42-456, the parts the fused product path calls).
+yondx/nle/robust.py:42-474: what the fused product path and the
+engine's robust fits call).
 
 Finest-scale Haar diagonal detail per RGGB plane, bucketed by cell
 intensity; per-bucket median |d| from a (bucket x log|d|) histogram; a
@@ -13,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .nlf import collab_nlf, self_nlf
 from .threshold import _subsample
 
 NB_M = 200          # intensity buckets
@@ -264,3 +266,31 @@ def shape_consistent_collab(comb, fit, mad, ref_mean, self_reg,
     s = v_fit / torch.clamp(v_mad, min=1e-30)
     fix = chose_fit & suspect & torch.isfinite(v_mad)
     return (torch.where(fix, b1m * s, b1c), torch.where(fix, b2m * s, b2c))
+
+
+def self_nlf_robust(lr_rggb, k: int = 29, step: int = 5,
+                    ratio: float = 1.5):
+    """SelfNLF with the MAD cross-check (the 'robust_nle' path)."""
+    x = lr_rggb.float()
+    fit = self_nlf(x, k=k, step=step)
+    mad = mad_self_estimate(x)
+    ref_mean = torch.mean(torch.clamp(x, 0.0, 1.0))
+    return combine_estimates(fit, mad, ref_mean, ratio)
+
+
+def collab_nlf_robust(lr_rggb, dn_rggb, k: int = 29, step: int = 5,
+                      band: float = COLLAB_BAND, self_reg=None):
+    """CollabNLF with the symmetric MAD cross-check on the residual;
+    `self_reg` (round-0 (beta1, beta2)) enables the shape-consistency
+    repair."""
+    lr = lr_rggb.float()
+    dn = dn_rggb.float()
+    fit = collab_nlf(lr, dn, k=k, step=step)
+    mad = mad_collab_estimate(lr, dn)
+    ref_mean = torch.mean(torch.clamp(dn, 0.0, 1.0))
+    comb = combine_estimates(fit, mad, ref_mean, band=band)
+    if self_reg is not None:
+        reg = tuple(torch.as_tensor(r, dtype=torch.float32, device=lr.device)
+                    for r in self_reg)
+        comb = shape_consistent_collab(comb, fit, mad, ref_mean, reg)
+    return comb

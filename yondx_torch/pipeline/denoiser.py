@@ -1,4 +1,10 @@
-"""Adaptive guidance scale (port of yondx/pipeline/denoiser.py:54-86).
+"""VST denoisers and the adaptive guidance scale (port of
+yondx/pipeline/denoiser.py:54-237,281-310).
+
+VSTDenoiser: scale -> VST -> bias subtraction ('pre') -> normalize by
+[VST(0), VST(scale)] -> SNR-Net guided by t = nsr * sigma_corr -> optional
+Wiener refine -> inverse VST -> rescale. SimpleDenoiser: clamp -> net ->
+clamp on packed planes.
 
 The blind per-frame sigma_corr rule: low-noise scenes keep 1.03,
 mid-noise 1.08, high-noise 1.00; heavy clipping with agreeing MAD and
@@ -7,10 +13,18 @@ docs/sigma_corr_blind_r5.json).
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
+from .. import resolve_device
+from ..core.tiling import pad_to_multiple, unpad
+from ..isp.bayer import bayer2rggb, rggb2bayer
 from ..nle.robust import mad_self_estimate
-from ..vst.vst import vst
+from ..vst.lut import cheb_fit_curve, lookup_bias_curve_cheb
+from ..vst.vst import inverse_vst, vst
+from .refine import wiener_refine
 
 ADAPTIVE_CORR_NSR_LO = 0.025
 ADAPTIVE_CORR_NSR_HI = 0.09
@@ -45,3 +59,159 @@ def adaptive_sigma_corr(rggb, K, sigma, scale):
     corr = torch.where(boost, const(c_clip), corr)
     corr = torch.where(nsr > ADAPTIVE_CORR_NSR_HI, const(c_hi), corr)
     return corr.float()
+
+
+def run_net(model, z, t, guided: bool, pad_base: int = 32,
+            compute_dtype=None):
+    """Reflect-pad z [B, h, w, 4] to a multiple of pad_base, run the model
+    on the clipped input (in compute_dtype when given) with guidance t
+    (a 0-d tensor, broadcast over the batch), clip and unpad."""
+    zp, p2d = pad_to_multiple(z, pad_base)
+    zin = torch.clamp(zp, 0.0, 1.0)
+    if compute_dtype is not None:
+        zin = zin.to(compute_dtype)
+    if guided:
+        out = model(zin, t.reshape(1).expand(zin.shape[0]))
+    else:
+        out = model(zin)
+    return unpad(torch.clamp(out.float(), 0.0, 1.0), p2d)
+
+
+def _bayer_batch(lr_bayer, device):
+    """A [B, H, W] or [H, W] bayer array/tensor -> (float32 [B, H, W]
+    tensor on `device`, whether the input was a single frame)."""
+    x = torch.as_tensor(lr_bayer, dtype=torch.float32, device=device)
+    return (x[None], True) if x.ndim == 2 else (x, False)
+
+
+class VSTDenoiser:
+    """Callable holding the net and the static pipe config.
+
+    __call__(lr_bayer [B, H, W] or [H, W], curve [2177], K, sigma, scale)
+    -> denoised bayer tensor, same shape, in [0, 1], on `device` ("cuda"
+    unless the caller passes "cpu"). `model` is an nn.Module on that
+    device called as model(x [B, h, w, 4], t [B]) (model(x) when
+    guided=False). sigma_corr: None -> 1.03 for the 'pre' bias path and
+    1.00 otherwise; a float; or 'adaptive' (the measured per-frame rule).
+    The refine takes the port's configuration (bucket floor, oriented
+    shrink, full alpha 1.0); the blind-spot variant (fbi=True) needs the
+    FBI_Net of models/comp.py, which the port does not have yet.
+    """
+
+    def __init__(self, model, *, guided: bool = True,
+                 bias_corr: Optional[str] = "pre", vst_type: str = "exact",
+                 pad_base: int = 32, fbi: bool = False,
+                 refine: bool = False, refine_k: int = 15,
+                 refine_beta: float = 1.0, refine_floor: str = "bucket",
+                 refine_shrink: bool = True, refine_shrink_lam: float = 1.0,
+                 refine_shrink_full_alpha: float = 1.0,
+                 refine_shrink_mode: str = "oriented",
+                 sigma_corr=None, device=None):
+        if fbi:
+            raise NotImplementedError(
+                "fbi=True needs the FBI_Net blind-spot model of "
+                "models/comp.py, which is not ported yet "
+                "(ROADMAP item 9)")
+        if refine and (refine_floor, bool(refine_shrink),
+                       float(refine_shrink_full_alpha),
+                       refine_shrink_mode) != ("bucket", True, 1.0,
+                                               "oriented"):
+            raise NotImplementedError(
+                "the port's refine runs the bucket floor with the oriented "
+                "shrink at full alpha 1.0; other refine_* settings are "
+                "ROADMAP item 4")
+        self.model = model
+        self.guided = guided
+        self.bias_corr = bias_corr
+        self.vst_type = vst_type
+        self.pad_base = pad_base
+        self.refine = refine
+        self.refine_k = refine_k
+        self.refine_beta = refine_beta
+        self.refine_shrink_lam = refine_shrink_lam
+        if sigma_corr is None:
+            sigma_corr = 1.03 if bias_corr == "pre" else 1.00
+        self.sigma_corr = sigma_corr
+        self.exact_inverse = bias_corr is None and vst_type == "exact"
+        self.device = resolve_device(device)
+
+    def _scalar(self, v):
+        return torch.as_tensor(v, dtype=torch.float32, device=self.device)
+
+    def _denoise(self, lr_rggb, curve, K, sigma, scale, corr=None):
+        """-> (output, raw net output) RGGB. corr None resolves the
+        instance's sigma_corr policy from the call's own pixels."""
+        if corr is None:
+            corr = adaptive_sigma_corr(lr_rggb, K, sigma, scale) \
+                if self.sigma_corr == "adaptive" \
+                else self._scalar(float(self.sigma_corr))
+        x = lr_rggb * scale
+        z = vst(x, sigma, gain=K)
+        if self.bias_corr == "pre":
+            coeffs = cheb_fit_curve(curve)
+            z = z - lookup_bias_curve_cheb(torch.clamp(x, min=0.0), coeffs,
+                                           K)
+        lower = vst(self._scalar(0.0), sigma, gain=K)
+        upper = vst(self._scalar(1.0) * scale, sigma, gain=K)
+        nsr = 1.0 / (upper - lower)
+        z = (z - lower) * nsr
+        z_noisy = z
+        z = run_net(self.model, z, nsr * corr, self.guided, self.pad_base)
+        z_raw = z
+        if self.refine:
+            z = wiener_refine(z, z_noisy, noise_var=nsr ** 2,
+                              k=self.refine_k, beta=self.refine_beta, x01=z,
+                              shrink_lam=self.refine_shrink_lam)
+
+        def finish(zz):
+            zz = zz * (upper - lower) + lower
+            xx = inverse_vst(zz, sigma, gain=K, exact=self.exact_inverse)
+            return torch.clamp(xx / scale, 0.0, 1.0)
+
+        # the raw (un-refined) output feeds the next round's collab NLE
+        out = finish(z)
+        return out, (finish(z_raw) if self.refine else out)
+
+    def __call__(self, lr_bayer, curve, K, sigma, scale):
+        return self.denoise_pair(lr_bayer, curve, K, sigma, scale)[0]
+
+    @torch.no_grad()
+    def denoise_pair(self, lr_bayer, curve, K, sigma, scale, corr=None):
+        """-> (output, raw_net_output) bayer pair; they differ only when
+        refine=True. corr: optional guidance-scale override (the tiled
+        runner's frame-scoped value); None = the sigma_corr policy."""
+        x, single = _bayer_batch(lr_bayer, self.device)
+        out, raw = self._denoise(
+            bayer2rggb(x), self._scalar(np.asarray(curve, np.float32)),
+            self._scalar(K), self._scalar(sigma), self._scalar(scale),
+            None if corr is None else self._scalar(corr))
+        out, raw = rggb2bayer(out), rggb2bayer(raw)
+        return (out[0], raw[0]) if single else (out, raw)
+
+    @torch.no_grad()
+    def denoise_rggb(self, rggb, curve, K, sigma, scale):
+        """Packed-plane entry point (already [B, h, w, 4])."""
+        rggb = torch.as_tensor(rggb, dtype=torch.float32, device=self.device)
+        return self._denoise(rggb, self._scalar(np.asarray(curve,
+                                                           np.float32)),
+                             self._scalar(K), self._scalar(sigma),
+                             self._scalar(scale))[0]
+
+
+class SimpleDenoiser:
+    """Non-VST path: clamp -> net -> clamp on packed planes."""
+
+    def __init__(self, model, *, guided: bool = False, pad_base: int = 32,
+                 device=None):
+        self.model = model
+        self.guided = guided
+        self.pad_base = pad_base
+        self.device = resolve_device(device)
+
+    @torch.no_grad()
+    def __call__(self, lr_bayer, t=0.0):
+        x, single = _bayer_batch(lr_bayer, self.device)
+        t = torch.as_tensor(t, dtype=torch.float32, device=self.device)
+        out = rggb2bayer(run_net(self.model, bayer2rggb(x), t, self.guided,
+                                 self.pad_base))
+        return out[0] if single else out

@@ -18,7 +18,6 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.tiling import pad_to_multiple, unpad
 from ..nle.fit import masked_linefit, nonsat_weights
 from ..nle.moments import nle_moments
 from ..nle.robust import (COLLAB_BAND, combine_estimates, flat_floor_stats,
@@ -28,7 +27,7 @@ from ..nle.threshold import score3_threshold_with_p25
 from ..vst.lut import (SG_EXT, SG_LUT, X_EXT, X_LUT, cheb_fit_curve,
                        load_sgext_lut, lookup_bias_curve_cheb)
 from ..vst.vst import inverse_vst, vst
-from .denoiser import adaptive_sigma_corr
+from .denoiser import adaptive_sigma_corr, run_net
 from .policy import (DEFAULT_FLOOR_FRAC, DEFAULT_TOL, combine_rounds,
                      reg_agreement)
 from .refine import wiener_refine
@@ -161,18 +160,6 @@ def make_fused_blind_denoiser(net, lut: np.ndarray, *, guided: bool = True,
     # second denoise passes run (rescue gate fired), read by callers
     stats = {"second_passes": 0}
 
-    def run_net(z, nsr, corr):
-        zp, p2d = pad_to_multiple(z, PAD_BASE)
-        zin = torch.clamp(zp, 0.0, 1.0)
-        if compute_dtype is not None:
-            zin = zin.to(compute_dtype)
-        if guided:
-            out = net(zin, (nsr * corr).reshape(1).expand(zin.shape[0]))
-        else:
-            out = net(zin)
-        out = torch.clamp(out.float(), 0.0, 1.0)
-        return unpad(out, p2d)
-
     def denoise(x01, K, sigma, scale):
         if sigma_corr == "adaptive":
             corr = adaptive_sigma_corr(x01, K, sigma, scale)
@@ -189,7 +176,7 @@ def make_fused_blind_denoiser(net, lut: np.ndarray, *, guided: bool = True,
         nsr = 1.0 / (upper - lower)
         z = (z - lower) * nsr
         z_noisy = z
-        z = run_net(z, nsr, corr)
+        z = run_net(net, z, nsr * corr, guided, PAD_BASE, compute_dtype)
         z_raw = z
         if refine:
             z = wiener_refine(z, z_noisy, noise_var=nsr ** 2, x01=z)

@@ -201,7 +201,8 @@ def shrink_residual_atrous(r, noise_var, levels: int = 3, lam: float = 1.0,
 
 def wiener_refine(z_dn, z_noisy, noise_var=1.0, *, k: int = 15,
                   beta: float = 1.0, deadband: float = 2.0, x01=None,
-                  sat_lo: float = 0.92, sat_hi: float = 0.98):
+                  sat_lo: float = 0.92, sat_hi: float = 0.98,
+                  shrink_lam: float = 1.0):
     """Refine a VST-space denoiser output against its own input
     ([..., h, w, C] normalized planes, noise variance `noise_var`), as
     yondx's wiener_refine with noise_floor='bucket', residual_shrink=True,
@@ -218,5 +219,5 @@ def wiener_refine(z_dn, z_noisy, noise_var=1.0, *, k: int = 15,
         sat = torch.clamp((x01 - sat_lo) / (sat_hi - sat_lo), 0.0, 1.0)
         alpha = alpha * (1.0 - sat)
         w_struct = (1.0 - alpha) * (1.0 - sat)
-    rs, rs_struct = shrink_residual_atrous(r, noise_var)
+    rs, rs_struct = shrink_residual_atrous(r, noise_var, lam=shrink_lam)
     return z_dn + alpha * rs + w_struct * rs_struct

@@ -13,6 +13,8 @@ import os
 import numpy as np
 import torch
 
+from .bias import bias_points, close_form_bias
+
 # --- grids (yondx/vst/lut.py:37-65) -----------------------------------------
 _SP = 128
 X_LIN_STEP = 2.0 ** -4 / _SP                      # 2^-11
@@ -81,6 +83,25 @@ class BiasLUT:
         if lut.shape != (len(X_LUT), len(SG_LUT)):
             raise ValueError(f"bad bias table shape {lut.shape}")
         self.lut = np.asarray(lut, np.float32)
+
+    def curve(self, K: float, sigma: float) -> np.ndarray:
+        """Host bias curve over FULL_X_GRID (float32, len 2177) for shot
+        gain K and read sigma (DN): in the table's sg range a blend of two
+        sg columns, beyond it the exact evaluation of the whole column;
+        the closed form past 2^10 e- (yondx/vst/lut.py:175-187)."""
+        sg = float(sigma) / float(K)
+        if sg <= SG_LUT[-1]:
+            pos = sg / 0.005 if sg < 1.0 else 200.0 + (sg - 1.0) / 0.01
+            pos = min(max(pos, 0.0), len(SG_LUT) - 1)
+            lo = int(math.floor(pos))
+            hi = min(lo + 1, len(SG_LUT) - 1)
+            w = pos - lo
+            base = self.lut[:, lo] * (1.0 - w) + self.lut[:, hi] * w
+        else:
+            base = bias_points(X_LUT, np.array([sg]))[:, 0]
+        ext = close_form_bias(X_EXT, sigGs=sg, K=1.0)
+        return np.concatenate((base.astype(np.float32),
+                               ext.astype(np.float32)))
 
 
 def frac_index_x(xe):
