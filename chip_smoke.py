@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch port (yondx_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR]
 
 Builds the port's CUDA kernel K1 (NLE box moments) with plain nvcc, holds
 it against its plain PyTorch version on the card in its three flavours
@@ -14,13 +14,22 @@ ANY-camera CLI path (`yondx_torch.cli.yond` with
 runfiles/YOND/ANY_simple+full_pre_grumix.yml: the gru32 flagship in fp32,
 whole-frame NLE, tiles of 1024 with halo 64, batch 8) on the same frame,
 holds that engine on the card against the CPU on a small frame, and runs
-`python -m yondx_torch.bench --arch gru32` once. Every phase prints one
-line with its elapsed seconds; any failure raises (exit code != 0). The
-last two lines are the kernels' JSON record and the device JSON record.
-Imports nothing of JAX or of the JAX package.
+`python -m yondx_torch.bench --arch gru32` once. Last, the frozen
+held-out quality gate (`yondx_torch.cli.eval_synth --heldout`): the v3
+suite's 39 scenes, built once on the host, through the s2dt16 and gru32
+nets in fp32 (each held to its committed artifact in docs/heldout/), the
+s2dt16 net in bf16 (printed beside), the gru32 net with the PGE
+estimator on suite v1, and the engine on the card against the CPU on
+two reduced scenes. Every phase prints one line with its elapsed
+seconds; any failure raises (exit code != 0). The last two lines are the
+kernels' JSON record and the device JSON record. With --out, each
+held-out column's eval_synth JSON is written into DIR. Imports nothing
+of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import re
@@ -35,6 +44,16 @@ import torch
 T0 = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 ANY_RUNFILE = "runfiles/YOND/ANY_simple+full_pre_grumix.yml"
+# the held-out gate's columns: eval_synth flags, and the committed TPU
+# artifact each is held to or printed beside
+S2DT16_FLAGS = ["--arch", "GuidedResUnetS2D", "--nf", "64", "--out-k", "3",
+                "--tail-nf", "16", "--model",
+                "Gaussian_GRUS2DT_mix_1to50c_norm", "--refine", "bucket"]
+GRU32_FLAGS = ["--arch", "GuidedResUnet", "--nf", "32", "--model",
+               "Gaussian_GRU_mix_1to50c_norm", "--refine", "bucket"]
+HELDOUT_ART = {"s2dt16": "docs/heldout/r5_s2dt_oriented_v3_tpu.json",
+               "gru32": "docs/heldout/r5_flagship_oriented_v3_tpu.json",
+               "pge": "docs/heldout/r4_flagship_pge_tpu.json"}
 
 
 def say(phase: str, msg: str) -> None:
@@ -316,7 +335,183 @@ def bench_gru32() -> None:
         raise AssertionError(f"bench K_est {k_est} not within 10% of 8.74")
 
 
-def main() -> dict:
+def _artifact(key):
+    with open(os.path.join(REPO, HELDOUT_ART[key])) as f:
+        return json.load(f)["rows"]
+
+
+def heldout_column(label, flags, scenes, out_dir, suite="v3",
+                   k1_per_scene=3):
+    """One eval_synth --heldout run on the card over the shared scenes
+    (its JSON into out_dir when given): -> (rows, K1 launches, the
+    engine). K1 runs once for the self fit (not with the PGE estimator)
+    and twice for the collab fit of each scene."""
+    from yondx_torch.cli import eval_synth
+    from yondx_torch.nle import moments
+    json_flag = ["--json", os.path.join(
+        out_dir, f"heldout_{label}_{suite}.json")] if out_dir else []
+    args = eval_synth.parse_args(
+        ["--heldout", "--suite", suite, *flags, *json_flag])
+    eng = eval_synth.build_engine(args)
+    torch.cuda.synchronize()
+    moments.reset_launches()
+    t = time.perf_counter()
+    rows = eval_synth.run(args, engine=eng, scenes=scenes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = moments.LAUNCHES["nle_moments"]
+    n = len(rows) - 1
+    sm = rows["_summary"]
+    say(f"heldout {label}", f"suite {suite}, {n} scenes in {wall:.2f} s "
+        f"({n / wall:.3f} scenes/s), K1 launches {launches}; mean "
+        f"{sm['mean_psnr']:.4f} dB (noisy {sm['mean_noisy']:.4f}), "
+        f"{sm['n_below_input']} below input, glyph margin "
+        f"{sm['glyphs_min_margin']:+.4f}; gain by class "
+        + ", ".join(f"{k} {v['mean']:+.3f}"
+                    for k, v in sm["per_class_gain"].items()))
+    if launches != k1_per_scene * n:
+        raise AssertionError(f"heldout {label}: K1 launched {launches} "
+                             f"times for {n} scenes, expected "
+                             f"{k1_per_scene * n}")
+    return rows, launches, eng
+
+
+def hold_to_artifact(label, rows, art):
+    """0 held-out scenes below input, the suite mean within 0.15 dB of
+    the artifact's, the glyph margin >= +1.0 dB; scenes more than 0.3 dB
+    from their artifact row are named."""
+    sm, am = rows["_summary"], art["_summary"]
+    far = [f"{k} {rows[k]['psnr'][-1]:.3f} (artifact "
+           f"{art[k]['psnr'][-1]:.3f})" for k in rows
+           if k != "_summary"
+           and abs(rows[k]["psnr"][-1] - art[k]["psnr"][-1]) > 0.3]
+    say(f"heldout {label}", f"mean {sm['mean_psnr']:.4f} vs artifact "
+        f"{am['mean_psnr']:.4f} ({sm['mean_psnr'] - am['mean_psnr']:+.4f}"
+        f" dB); glyph margin {sm['glyphs_min_margin']:+.4f} (artifact "
+        f"{am['glyphs_min_margin']:+.4f}); scenes > 0.3 dB from the "
+        f"artifact: {far if far else 'none'}")
+    if sm["n_below_input"] != 0:
+        raise AssertionError(f"heldout {label}: {sm['n_below_input']} "
+                             "scenes below input")
+    if abs(sm["mean_psnr"] - am["mean_psnr"]) > 0.15:
+        raise AssertionError(f"heldout {label}: mean {sm['mean_psnr']:.4f}"
+                             f" not within 0.15 dB of {am['mean_psnr']:.4f}")
+    if sm["glyphs_min_margin"] < 1.0:
+        raise AssertionError(f"heldout {label}: glyph margin "
+                             f"{sm['glyphs_min_margin']:.4f} < +1.0 dB")
+
+
+def heldout_card_vs_cpu():
+    """ramp_lo and photo_mid cut to 128 px and one crop, s2dt16 fp32
+    through the engine on the card and on the CPU: PSNR within 0.01 dB,
+    regs within the larger of rtol 1e-3 and the card's +-1e-6 shift
+    spread (as phase 4)."""
+    from yondx_torch.cli import eval_synth
+    from yondx_torch.eval import heldout
+    from yondx_torch.eval.metrics import psnr as t_psnr
+    engines = {d: eval_synth.build_engine(eval_synth.parse_args(
+        ["--device", d, *S2DT16_FLAGS])) for d in ("cuda", "cpu")}
+    p = {"wp": heldout.WP, "bl": heldout.BL, "ratio": 1,
+         "scale": float(heldout.WP - heldout.BL), "gain": 1.0, "sigma": 0.0}
+    for name in ("ramp_lo", "photo_mid"):
+        spec = next(s for s in heldout.SUITES["v3"] if s.name == name)
+        clean, noisy = heldout.build_scene(
+            dataclasses.replace(spec, size=128, n_crops=1))
+        res = {d: e.iter_denoise({"lr": noisy}, dict(p))
+               for d, e in engines.items()}
+        rg = np.array(res["cuda"]["regs"])
+        rc = np.array(res["cpu"]["regs"])
+        spread = np.max([np.abs(np.array(engines["cuda"].iter_denoise(
+            {"lr": noisy + sh}, dict(p))["regs"]) - rg)
+            for sh in (1e-6, -1e-6)], axis=0)
+        allowed = np.maximum(1e-3 * np.abs(rc), spread)
+        pg, pc = (float(t_psnr(res[d]["raw_dns"][-1], clean))
+                  for d in ("cuda", "cpu"))
+        say("heldout cuda vs cpu", f"{name} (128 px, 1 crop): PSNR cuda "
+            f"{pg:.4f} cpu {pc:.4f} dB; regs cuda {rg.tolist()} cpu "
+            f"{rc.tolist()}, |diff| {np.abs(rg - rc).tolist()}, allowed "
+            f"{allowed.tolist()}")
+        if abs(pg - pc) > 0.01:
+            raise AssertionError(f"{name}: card and CPU PSNR differ by "
+                                 f"{abs(pg - pc):.4f} dB > 0.01")
+        if not (np.abs(rg - rc) <= allowed).all():
+            raise AssertionError(f"{name}: regs disagree between cuda and "
+                                 "cpu")
+
+
+def heldout_gate(out_dir=None) -> dict:
+    """Phase 9: the frozen held-out gate on the card (see the module
+    docstring); returns K1's launches per column."""
+    from yondx_torch.eval import heldout
+    from yondx_torch.eval.metrics import psnr as t_psnr
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    say("heldout", f"numpy {np.__version__} (the Poisson and normal "
+        "streams of the scenes are numpy's)")
+    t = time.perf_counter()
+    scenes = {(s.name, None): heldout.build_scene(s)
+              for s in heldout.SUITES["v3"]}
+    noisy = [float(t_psnr(scenes[(s.name, None)][1],
+                          scenes[(s.name, None)][0]))
+             for s in heldout.SUITES["v3"] if s.heldout]
+    art_noisy = _artifact("s2dt16")["_summary"]["mean_noisy"]
+    say("heldout", f"built the {len(scenes)} v3 scenes on the host in "
+        f"{time.perf_counter() - t:.2f} s; held-out noisy mean "
+        f"{np.mean(noisy):.5f} dB (artifact {art_noisy:.5f})")
+    if abs(np.mean(noisy) - art_noisy) > 0.01:
+        raise AssertionError(f"held-out noisy mean {np.mean(noisy):.5f} "
+                             f"not within 0.01 dB of {art_noisy:.5f}")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    # (a) s2dt16 fp32 and (b) gru32 fp32, each held to its artifact
+    cols = {}
+    for label, flags in (("s2dt16", S2DT16_FLAGS), ("gru32", GRU32_FLAGS)):
+        rows, launches[label], _ = heldout_column(label, flags, scenes,
+                                                  out_dir)
+        hold_to_artifact(label, rows, _artifact(label))
+        cols[label] = rows
+    # (c) s2dt16 with --bf16, printed beside (a)
+    rows_bf, launches["s2dt16_bf16"], _ = heldout_column(
+        "s2dt16_bf16", S2DT16_FLAGS + ["--bf16"], scenes, out_dir)
+    fa, fb = cols["s2dt16"]["_summary"], rows_bf["_summary"]
+    say("heldout bf16 - fp32", f"s2dt16 mean {fb['mean_psnr']:.4f} - "
+        f"{fa['mean_psnr']:.4f} = {fb['mean_psnr'] - fa['mean_psnr']:+.4f} "
+        f"dB; below input {fb['n_below_input']}; glyph margin "
+        f"{fb['glyphs_min_margin']:+.4f}; by class " + ", ".join(
+            f"{k} {fb['per_class_gain'][k]['mean'] - v['mean']:+.3f}"
+            for k, v in fa["per_class_gain"].items()))
+    # (d) gru32 with the PGE estimator on suite v1
+    rows_pge, launches["gru32_pge_v1"], eng = heldout_column(
+        "gru32_pge", GRU32_FLAGS + ["--est", "pge"], scenes, out_dir,
+        suite="v1", k1_per_scene=2)
+    est = eng.est_models["est_net"]
+    specs = heldout.SUITES["v1"]
+    say("heldout gru32_pge", "K_est / K per scene: " + ", ".join(
+        f"{s.name} {float(o[0]) * 959:.2f}/{s.K}"
+        for s, o in zip(specs, est.outputs))
+        + f"; mean {rows_pge['_summary']['mean_psnr']:.4f} dB (r4 "
+        f"history: {_artifact('pge')['_summary']['mean_psnr']:.2f})")
+    outs = np.array(est.outputs, np.float64)
+    if est.calls != len(specs) or outs.shape != (len(specs), 2):
+        raise AssertionError(f"est net ran {est.calls} times for "
+                             f"{len(specs)} scenes")
+    if not (np.isfinite(outs).all() and (outs > 0).all()):
+        raise AssertionError(f"est net gave non-finite or non-positive "
+                             f"(K, sigma): {outs.tolist()}")
+    # (e) the engine on the card against the CPU
+    heldout_card_vs_cpu()
+    return launches
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None, metavar="DIR",
+                    help="write each held-out column's JSON into DIR")
+    out_dir = ap.parse_args(argv).out
+    if out_dir:
+        out_dir = os.path.abspath(out_dir)
     # 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -334,7 +529,7 @@ def main() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     say("device", f"{name} x{torch.cuda.device_count()}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; TF32 off for "
-        "phases 3-4 and 6-7")
+        "phases 3-4, 6-7 and 9")
 
     # 2. build -------------------------------------------------------------
     from yondx_torch import cuda_build
@@ -342,6 +537,11 @@ def main() -> dict:
     lib = cuda_build.build(force=True, verbose=True)
     cuda_build.load_library()
     say("build", f"nvcc built {lib.name} in {time.perf_counter() - t:.2f} s")
+    from yondx_torch.core import libm
+    t = time.perf_counter()
+    libm.sinf(np.zeros(1, np.float32))
+    say("build", "host C compiler built the libm helper of the held-out "
+        f"scenes in {time.perf_counter() - t:.2f} s")
 
     # 3. K1 against its plain version on the card ----------------------------
     from yondx_torch.nle import moments
@@ -360,7 +560,13 @@ def main() -> dict:
              ("e [1,15,40,4]", torch.rand((1, 15, 40, 4), generator=g,
                                           device=dev)),
              ("f [1,1,37,4]", torch.rand((1, 1, 37, 4), generator=g,
-                                         device=dev)))
+                                         device=dev)),
+             # the held-out gate's crop stacks (4 crops of 512 px; the
+             # 1024 px tier's one crop)
+             ("h [4,256,256,4] crops", torch.rand((4, 256, 256, 4),
+                                                  generator=g, device=dev)),
+             ("i [1,512,512,4] crop", torch.rand((1, 512, 512, 4),
+                                                 generator=g, device=dev)))
     # tolerances: fp32 sliding sums over runs of <= 32 outputs of data
     # shifted per tile (kernel) vs prefix sums of per-plane centered data
     # (plain), in [0,1]: mean 1e-5 (a few ulps of a 29x29 sum), var 1e-6
@@ -423,19 +629,23 @@ def main() -> dict:
 
     timing = time_flavours(x_a)
     timing_w = time_flavours(frame_a)
+    timing_h = {label: time_flavours(x) for label, x in cases
+                if label[0] in "hi"}
     ms_k1, bound_ms, bound_by, _ = timing["self"]
     ms_plain = cuda_ms(lambda: moments.nle_moments_plain(x_a, k, inner), 10,
                        flush)
     ms_plain_w = cuda_ms(lambda: moments.nle_moments_plain(frame_a, k,
                                                            inner), 5, flush)
     for label, tim, plain in (("a", timing, ms_plain),
-                              ("w", timing_w, ms_plain_w)):
+                              ("w", timing_w, ms_plain_w),
+                              *((lab, tim, None)
+                                for lab, tim in timing_h.items())):
         say("K1 timing", label + ", cold L2, host enqueue included ("
             + peak_key + " peaks): " + "; ".join(
                 f"{f} {ms:.4f} ms, bound {b:.4f} ms by {by} "
                 f"({mb / 1e6:.1f} MB), {ms / b:.1f}x"
                 for f, (ms, b, by, mb) in tim.items())
-            + f"; plain (self) {plain:.4f} ms")
+            + (f"; plain (self) {plain:.4f} ms" if plain else ""))
     del scratch, frame_a, x_a, cases
 
     # 4. card path against the port's CPU path, end to end ------------------
@@ -540,6 +750,9 @@ def main() -> dict:
     # 8. the port's bench with the gru32 flagship ---------------------------
     bench_gru32()
 
+    # 9. the frozen held-out quality gate (eval_synth --heldout) ------------
+    heldout_launches = heldout_gate(out_dir)
+
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
         "source": "yondx_torch/csrc/nle_moments.cu",
@@ -554,7 +767,16 @@ def main() -> dict:
             "ms": {f: t[0] for f, t in timing_w.items()},
             "bound_ms": {f: t[1] for f, t in timing_w.items()},
             "bound_by": {f: t[2] for f, t in timing_w.items()},
-            "plain_ms": ms_plain_w}}]}
+            "plain_ms": ms_plain_w},
+        # the held-out gate's crop stacks: 3 launches a scene (2 with
+        # the PGE estimator), counted per column around its run
+        "heldout": {
+            "launches": heldout_launches,
+            "shapes": {lab.split()[1]: {
+                "ms": {f: t[0] for f, t in tim.items()},
+                "bound_ms": {f: t[1] for f, t in tim.items()},
+                "bound_by": {f: t[2] for f, t in tim.items()}}
+                for lab, tim in timing_h.items()}}}]}
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

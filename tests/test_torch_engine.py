@@ -247,8 +247,13 @@ def test_denoisers_reject_what_the_port_lacks(nf8):
     net = nf8[2]
     with pytest.raises(NotImplementedError, match="item 9"):
         VSTDenoiser(net, fbi=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        VSTDenoiser(net, refine=True, refine_floor="q10", device="cpu")
+    # the q10 floor (ROADMAP item 4's refine part) now runs
+    lr = _bayer(64, 64, 1, (2, 2))
+    pair = VSTDenoiser(net, refine=True, refine_floor="q10",
+                       device="cpu").denoise_pair(
+        lr, np.zeros(2177, np.float32), K_TRUE, SIG_TRUE, SCALE)
+    for t in pair:
+        assert t.shape == (64, 64) and bool(torch.isfinite(t).all())
     out = SimpleDenoiser(net, guided=True, device="cpu")(
         _bayer(64, 64, 1, (2, 2)), t=0.1)
     assert out.shape == (64, 64) and bool(torch.isfinite(out).all())

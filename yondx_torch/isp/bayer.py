@@ -26,6 +26,15 @@ def rggb2bayer(rggb):
     return x.reshape(shp[:-3] + (h * 2, w * 2))
 
 
+def bayer_aug(rggb, k: int = 0):
+    """Rotate the underlying bayer mosaic by 90*k degrees (CFA phase):
+    rggb -> bayer -> rot90(k) over the last two axes -> rggb."""
+    if k % 4 == 0:
+        return rggb
+    bayer = torch.rot90(rggb2bayer(rggb), k % 4, dims=(-2, -1))
+    return bayer2rggb(bayer)
+
+
 # SIDD bayer_2by2 patterns (1=R, 2=G, 3=B) -> rot90 count to RGGB
 # (yondx/isp/bayer.py:58-64)
 _PATTERN_TO_K = {

@@ -1,14 +1,15 @@
 """Model registry: YAML arch name -> nn.Module (port of
-yondx/models/registry.py:40-52, for the guided UNets the port has)."""
+yondx/models/registry.py:40-52, for the models the port has)."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from . import unets
+from . import comp, unets
 
 MODEL_REGISTRY = {
     "GuidedResUnet": unets.GuidedResUnet,
     "GuidedResUnetS2D": unets.GuidedResUnetS2D,
+    "est_UNet": comp.est_UNet,
 }
 
 # Models whose forward takes (x, t)

@@ -93,9 +93,11 @@ class VSTDenoiser:
     device called as model(x [B, h, w, 4], t [B]) (model(x) when
     guided=False). sigma_corr: None -> 1.03 for the 'pre' bias path and
     1.00 otherwise; a float; or 'adaptive' (the measured per-frame rule).
-    The refine takes the port's configuration (bucket floor, oriented
-    shrink, full alpha 1.0); the blind-spot variant (fbi=True) needs the
-    FBI_Net of models/comp.py, which the port does not have yet.
+    refine_*: the Wiener refine's settings (pipeline/refine.py). The
+    net runs in compute_dtype when given (the caller loads its weights in
+    that dtype, as `--bf16` does); everything around it stays float32.
+    The blind-spot variant (fbi=True) needs the FBI_Net of
+    models/comp.py, which the port does not have yet.
     """
 
     def __init__(self, model, *, guided: bool = True,
@@ -106,20 +108,12 @@ class VSTDenoiser:
                  refine_shrink: bool = True, refine_shrink_lam: float = 1.0,
                  refine_shrink_full_alpha: float = 1.0,
                  refine_shrink_mode: str = "oriented",
-                 sigma_corr=None, device=None):
+                 sigma_corr=None, compute_dtype=None, device=None):
         if fbi:
             raise NotImplementedError(
                 "fbi=True needs the FBI_Net blind-spot model of "
                 "models/comp.py, which is not ported yet "
                 "(ROADMAP item 9)")
-        if refine and (refine_floor, bool(refine_shrink),
-                       float(refine_shrink_full_alpha),
-                       refine_shrink_mode) != ("bucket", True, 1.0,
-                                               "oriented"):
-            raise NotImplementedError(
-                "the port's refine runs the bucket floor with the oriented "
-                "shrink at full alpha 1.0; other refine_* settings are "
-                "ROADMAP item 4")
         self.model = model
         self.guided = guided
         self.bias_corr = bias_corr
@@ -128,10 +122,15 @@ class VSTDenoiser:
         self.refine = refine
         self.refine_k = refine_k
         self.refine_beta = refine_beta
+        self.refine_floor = refine_floor
+        self.refine_shrink = refine_shrink
         self.refine_shrink_lam = refine_shrink_lam
+        self.refine_shrink_full_alpha = refine_shrink_full_alpha
+        self.refine_shrink_mode = refine_shrink_mode
         if sigma_corr is None:
             sigma_corr = 1.03 if bias_corr == "pre" else 1.00
         self.sigma_corr = sigma_corr
+        self.compute_dtype = compute_dtype
         self.exact_inverse = bias_corr is None and vst_type == "exact"
         self.device = resolve_device(device)
 
@@ -156,12 +155,17 @@ class VSTDenoiser:
         nsr = 1.0 / (upper - lower)
         z = (z - lower) * nsr
         z_noisy = z
-        z = run_net(self.model, z, nsr * corr, self.guided, self.pad_base)
+        z = run_net(self.model, z, nsr * corr, self.guided, self.pad_base,
+                    self.compute_dtype)
         z_raw = z
         if self.refine:
-            z = wiener_refine(z, z_noisy, noise_var=nsr ** 2,
-                              k=self.refine_k, beta=self.refine_beta, x01=z,
-                              shrink_lam=self.refine_shrink_lam)
+            z = wiener_refine(
+                z, z_noisy, noise_var=nsr ** 2, k=self.refine_k,
+                beta=self.refine_beta, x01=z, noise_floor=self.refine_floor,
+                residual_shrink=self.refine_shrink,
+                shrink_lam=self.refine_shrink_lam,
+                shrink_full_alpha=self.refine_shrink_full_alpha,
+                shrink_mode=self.refine_shrink_mode)
 
         def finish(zz):
             zz = zz * (upper - lower) + lower

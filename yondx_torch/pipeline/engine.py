@@ -31,8 +31,9 @@ from .policy import (DEFAULT_FLOOR_FRAC, DEFAULT_POLICY, DEFAULT_TOL,
                      combine_rounds, reg_agreement)
 from .runner import TiledRunner
 
-_ITEM8 = ("needs precomputed estimate files or an est_* network, which "
-          "the port has not ported yet (ROADMAP item 8)")
+_ITEM8 = ("needs precomputed estimate files (or, for 'pge', an est_net in "
+          "est_models), which the port has not ported yet (ROADMAP item "
+          "8)")
 
 
 @dataclasses.dataclass
@@ -67,17 +68,21 @@ class YONDEngine:
     """Orchestrates NLE + denoise rounds for one scene.
 
     denoiser: VSTDenoiser (its device is the engine's); pipe:
-    PipelineConfig; biaslut: BiasLUT (default: the committed table). The
-    est_* estimator nets are not ported (ROADMAP item 8).
+    PipelineConfig; biaslut: BiasLUT (default: the committed table);
+    est_models: optional {'est_net': callable(lr) -> (K, sigma)} for
+    est_type 'pge' (the est_UNet scalar estimator; lr is the [N, H, W]
+    bayer tensor on the engine's device).
     """
 
     def __init__(self, denoiser, pipe: PipelineConfig,
                  biaslut: Optional[BiasLUT] = None,
+                 est_models: Optional[Dict[str, Any]] = None,
                  logfile: Optional[str] = None):
         self.denoiser = denoiser
         self.device = denoiser.device
         self.pipe = pipe
         self.biaslut = biaslut or BiasLUT()
+        self.est_models = est_models or {}
         self.logfile = logfile
 
     def _tensor(self, a):
@@ -220,6 +225,10 @@ class YONDEngine:
                    (p["sigma"] / (p["wp"] - p["bl"])) ** 2)
         elif "simple" in pipe.est_type or "ours" in pipe.est_type:
             reg = self._estimate_self(data.get("lr_full", lr))
+        elif "pge" in pipe.est_type and "est_net" in self.est_models:
+            # the net's second scalar is sigma, squared to beta2
+            r = self.est_models["est_net"](lr)
+            reg = (float(r[0]), float(r[1]) ** 2)
         elif any(t in pipe.est_type for t in
                  ("cal_est", "foi", "liu", "zou", "pge")):
             reg = self._file_based_est(data, img_id, p)

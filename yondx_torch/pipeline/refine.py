@@ -1,16 +1,18 @@
-"""Method-noise Wiener refinement (port of yondx/pipeline/refine.py:56-553,
-the product configuration: bucket noise floor, oriented residual shrink).
+"""Method-noise Wiener refinement (port of yondx/pipeline/refine.py:56-553).
 
 In VST space the noise is unit variance, so the residual r = z_noisy -
 z_dn measures the denoiser's local error power: sigma_d^2 = max(0,
 box(r^2) - floor). The Wiener weight alpha = sigma_d^2 / (sigma_d^2 +
-floor) blends back the a-trous-shrunk residual, plus its orientation-
-coherent structure at full weight.
+floor) blends back the residual, optionally a-trous-shrunk first. The
+floor is the caller's noise variance ('fixed'), its per-intensity
+bucket measurement ('bucket'), a windowed-min erosion of the residual
+power ('local'), or a gated 10th percentile of it ('q10').
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.tiling import reflect_pad
 from ..nle.boxfilter import box_mean
@@ -167,14 +169,18 @@ def _dir_coherence(d, t: int, L: int):
 
 
 def shrink_residual_atrous(r, noise_var, levels: int = 3, lam: float = 1.0,
-                           stab_k: int = 3, dir_L: int = 9,
-                           dir_c0: float = 8.0, dir_c1: float = 8.0):
+                           stab_k: int = 3, mode: str = "oriented",
+                           dir_L: int = 9, dir_c0: float = 8.0,
+                           dir_c1: float = 8.0):
     """Per-band empirical-Wiener shrink of the residual in the a-trous
-    domain with the orientation-coherence structure gate (JAX
-    shrink_mode='oriented'). Returns (shrunk residual, coherence-gated
-    structure part)."""
+    domain; mode 'oriented' adds the orientation-coherence structure
+    gate, 'iso' keeps the isotropic gain alone. Returns (shrunk residual,
+    coherence-gated structure part; zeros for 'iso')."""
+    if mode not in ("iso", "oriented"):
+        raise ValueError(f"shrink mode {mode!r} is not 'iso' or 'oriented'")
     det_vars, _ = _starlet_noise_vars(levels)
-    dir_vars = _dir_mean_noise_vars(levels, dir_L)
+    if mode == "oriented":
+        dir_vars = _dir_mean_noise_vars(levels, dir_L)
     V = noise_var
     c = r
     out = torch.zeros_like(r)
@@ -185,39 +191,128 @@ def shrink_residual_atrous(r, noise_var, levels: int = 3, lam: float = 1.0,
         e = box_mean(d * d, stab_k)
         g = torch.clamp(e - lam * det_vars[j] * V, min=0.0) \
             / torch.clamp(e, min=1e-20)
-        # channel mean of C independent planes: noise variance / C
-        nu_ax, nu_dg = (v / r.shape[-1] for v in dir_vars[j])
-        coh_ax, coh_dg = _dir_coherence(d, min(2 ** j, 4), dir_L)
-        q = torch.maximum(coh_ax / (nu_ax * V + 1e-30),
-                          coh_dg / (nu_dg * V + 1e-30))
-        qe = torch.clamp(q - dir_c0, min=0.0)
-        s = qe / (qe + dir_c1)
-        g = g + (1.0 - g) * s
-        struct = struct + s * d
+        if mode == "oriented":
+            # channel mean of C independent planes: noise variance / C
+            nu_ax, nu_dg = (v / r.shape[-1] for v in dir_vars[j])
+            coh_ax, coh_dg = _dir_coherence(d, min(2 ** j, 4), dir_L)
+            q = torch.maximum(coh_ax / (nu_ax * V + 1e-30),
+                              coh_dg / (nu_dg * V + 1e-30))
+            qe = torch.clamp(q - dir_c0, min=0.0)
+            s = qe / (qe + dir_c1)
+            g = g + (1.0 - g) * s
+            struct = struct + s * d
         out = out + g * d
         c = cj
     return out + c, struct
 
 
+def _window_min(x, w: int, axis: int):
+    """Windowed minimum of width w (odd) along `axis` of [..., h, w, C],
+    centred, over the in-bounds samples only (XLA's reduce_window with
+    SAME padding and an infinite pad value)."""
+    xt = x.movedim(axis, -1)
+    shp = xt.shape
+    y = -F.max_pool1d(-xt.reshape(-1, 1, shp[-1]), w, stride=1,
+                      padding=w // 2)
+    return y.reshape(shp).movedim(-1, axis)
+
+
+def _local_floor(local_pow, noise_var, k: int):
+    """Every region inherits the residual power of its nearest flat
+    patch: a (4k+3)-wide separable erosion, debiased, capped by the
+    model variance."""
+    w = 4 * k + 3
+    ero = _window_min(_window_min(local_pow, w, -3), w, -2)
+    # min over ~(w/k)^2 independent k^2-sample chi2 means sits ~1.8
+    # sampling-sigmas below the mean
+    df = max(1.0 - 1.8 * float(np.sqrt(2.0)) / k, 0.5)
+    V = torch.as_tensor(noise_var, dtype=torch.float32,
+                        device=local_pow.device)
+    return torch.minimum(V, torch.clamp(ero / df, min=1e-12))
+
+
+def _q10_floor(local_pow, noise_var, x01, k: int, stride: int,
+               sat_lo: float):
+    """The 10th percentile of the strided residual power over mid-tone
+    samples (the unmasked one where fewer than 17 are valid), debiased
+    and trusted only as a gross over-estimate of the model variance."""
+    s = stride
+    sub = local_pow[..., ::s, ::s, :]
+    if x01 is not None:
+        lvl = x01[..., ::s, ::s, :]
+        valid = (lvl > 0.06) & (lvl < sat_lo)
+        subm = torch.where(valid, sub, torch.full_like(sub, float("inf")))
+    else:
+        valid = torch.ones_like(sub, dtype=torch.bool)
+        subm = sub
+    lead = sub.shape[0] if sub.ndim == 4 else 1
+    flat = torch.sort(subm.reshape(lead, -1), dim=-1).values
+    nv = torch.sum(valid.reshape(lead, -1), dim=-1)
+    idx = torch.clamp((0.10 * nv.float()).to(torch.int64), 0,
+                      flat.shape[-1] - 1)
+    q = torch.gather(flat, 1, idx[:, None])[:, 0]
+    q_all = torch.quantile(sub.reshape(lead, -1), 0.10, dim=-1)
+    q = torch.where(nv > 16, q, q_all)
+    q = q[:, None, None, None] if sub.ndim == 4 else q[0]
+    # the 10th pct of a k^2-sample mean of squares sits ~1.28*sqrt(2)/k
+    # below its mean
+    q = q / max(1.0 - 1.28 * float(np.sqrt(2.0)) / k, 0.5)
+    q = torch.clamp(q, min=1e-12)
+    V = torch.as_tensor(noise_var, dtype=torch.float32,
+                        device=local_pow.device)
+    ratio = q / torch.clamp(V, min=1e-12)
+    t = torch.clamp((ratio - 0.35) / 0.25, 0.0, 1.0)
+    return torch.minimum(V, q * (1.0 - t) + V * t)
+
+
 def wiener_refine(z_dn, z_noisy, noise_var=1.0, *, k: int = 15,
                   beta: float = 1.0, deadband: float = 2.0, x01=None,
                   sat_lo: float = 0.92, sat_hi: float = 0.98,
-                  shrink_lam: float = 1.0):
+                  noise_floor: str = "bucket", floor_stride: int = 32,
+                  residual_shrink: bool = True, shrink_lam: float = 1.0,
+                  shrink_full_alpha: float = 1.0,
+                  shrink_mode: str = "oriented"):
     """Refine a VST-space denoiser output against its own input
     ([..., h, w, C] normalized planes, noise variance `noise_var`), as
-    yondx's wiener_refine with noise_floor='bucket', residual_shrink=True,
-    shrink_full_alpha=1.0, shrink_mode='oriented':
-    out = z_dn + alpha * shrunk(r) + (1 - alpha) * structure(r)."""
+    yondx's wiener_refine. The defaults are the product configuration
+    (bucket floor, oriented shrink at full alpha 1.0); the JAX
+    function's defaults are q10 and no shrink, and its callers pass
+    every setting, as the port's VSTDenoiser does.
+
+    With residual_shrink and shrink_full_alpha >= 1: out = z_dn + alpha *
+    shrunk(r) + (1 - alpha) * structure(r); with shrink_full_alpha < 1
+    the shrunk residual is handed back to the raw one as alpha rises
+    past it; without the shrink: out = z_dn + alpha * r."""
     r = z_noisy - z_dn
     local_pow = box_mean(r * r, k)
-    noise_var = _bucket_noise_floor(z_noisy, z_dn, noise_var)
+    if noise_floor == "bucket":
+        noise_var = _bucket_noise_floor(z_noisy, z_dn, noise_var)
+    elif noise_floor == "local":
+        noise_var = _local_floor(local_pow, noise_var, k)
+    elif noise_floor == "q10":
+        noise_var = _q10_floor(local_pow, noise_var, x01, k, floor_stride,
+                               sat_lo)
+    elif noise_floor != "fixed":
+        raise ValueError(f"noise floor {noise_floor!r} is not one of "
+                         "'bucket', 'local', 'q10', 'fixed'")
     allowance = noise_var * (1.0 + deadband * float(np.sqrt(2.0) / k))
     sigma_d2 = beta * torch.clamp(local_pow - allowance, min=0.0)
     alpha = sigma_d2 / (sigma_d2 + noise_var)
-    w_struct = 1.0 - alpha
     if x01 is not None:
         sat = torch.clamp((x01 - sat_lo) / (sat_hi - sat_lo), 0.0, 1.0)
         alpha = alpha * (1.0 - sat)
-        w_struct = (1.0 - alpha) * (1.0 - sat)
-    rs, rs_struct = shrink_residual_atrous(r, noise_var, lam=shrink_lam)
-    return z_dn + alpha * rs + w_struct * rs_struct
+    if residual_shrink:
+        rs, rs_struct = shrink_residual_atrous(r, noise_var, lam=shrink_lam,
+                                               mode=shrink_mode)
+        if shrink_full_alpha >= 1.0:
+            w_struct = 1.0 - alpha
+            if x01 is not None:
+                w_struct = w_struct * (1.0 - sat)
+            return z_dn + alpha * rs + w_struct * rs_struct
+        # below full alpha the shrunk residual is used as-is; above it a
+        # linear ramp hands back the raw residual (fa -> 1 clamped so the
+        # ramp stays defined)
+        fa = min(shrink_full_alpha, 1.0 - 1e-6)
+        w = torch.clamp((alpha - fa) / (1.0 - fa), 0.0, 1.0)
+        r = rs + w * (r - rs)
+    return z_dn + alpha * r
