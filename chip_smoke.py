@@ -505,6 +505,246 @@ def heldout_gate(out_dir=None) -> dict:
     return launches
 
 
+TRAIN_RUNFILE = "runfiles/Gaussian/GRU_5to50_norm_mix.yml"
+DISTILL_RUNFILE = "runfiles/Gaussian/GRUS2DT_distill_ftC.yml"
+CKPTS = os.path.join(REPO, "checkpoints", "Gaussian")
+# AWGNTrainer.eval of the JAX package on the CPU with the committed
+# Gaussian_GRU_mix_5to50_norm best checkpoint, the runfile's eval set cut
+# to 64 crops (SyntheticSRGBDataset v6, seed 2024): sigma -> (PSNR, SSIM)
+JAX_EVAL = {10: (31.0084, 0.9092), 25: (30.0677, 0.8855),
+            50: (28.7428, 0.8368)}
+
+
+def _train_args(runfile, tmp, **dst):
+    """A runfile with every place it writes moved under `tmp` (an eval
+    record would otherwise overwrite the committed best checkpoint)."""
+    from yondx_torch.config import load_runfile
+    args = load_runfile(os.path.join(REPO, runfile), mode="train")
+    args["fast_ckpt"] = os.path.join(tmp, "ckpt")
+    args["checkpoint"] = os.path.join(tmp, "saved")
+    args["result_dir"] = os.path.join(tmp, "images")
+    for k in ("dst_train", "dst_eval", "dst_test"):
+        args[k].update(dst.get(k, {}))
+    return args
+
+
+def train_step_card_vs_cpu(tmp) -> None:
+    """(a) One step of gru32 (committed 5to50 weights) on 4 crops of 64
+    px, card against CPU, "jax" fields on both, TF32 off and cuDNN
+    deterministic. Tolerances: loss rtol 1e-4; gradients and both Adam
+    moments within 1e-3 of each tensor's max; parameters within the move
+    Adam's first step can make for the tensor's gradient error (below),
+    and at most 1% of the entries apart by more than 3e-7."""
+    from yondx_torch.data.datasets import SyntheticSRGBDataset
+    from yondx_torch.io.ckpt import load_checkpoint
+    from yondx_torch.train import AWGNTrainer
+    from yondx_torch.train.draws import train_keys
+    torch.backends.cudnn.deterministic = True
+    args = _train_args(TRAIN_RUNFILE, tmp)
+    args["dst_train"]["patch_size"] = 64
+    args["hyper"]["batch_size"] = 4
+    ds = SyntheticSRGBDataset(length=4, size=64, seed=1997, cache=False)
+    batch = np.stack([ds[i] for i in range(4)])
+    params = load_checkpoint(os.path.join(
+        CKPTS, "Gaussian_GRU_mix_5to50_norm_best_model.ckpt"))["params"]
+    lr = 4e-5
+    out = {}
+    for d in ("cuda", "cpu"):
+        tr = AWGNTrainer(args, device=d, field="jax")
+        tr.load_params(params)
+        loss, m, _ = tr.train_step(batch, next(train_keys(1997)), lr)
+        st = tr.optimizer.state
+        out[d] = {"loss": float(loss), "psnr": float(m), "p": {}, "g": {},
+                  "mu": {}, "nu": {}}
+        for n, p in tr.model.named_parameters():
+            out[d]["p"][n] = p.detach().cpu().numpy()
+            out[d]["g"][n] = p.grad.detach().cpu().numpy()
+            out[d]["mu"][n] = st[p]["exp_avg"].cpu().numpy()
+            out[d]["nu"][n] = st[p]["exp_avg_sq"].cpu().numpy()
+    torch.backends.cudnn.deterministic = False
+    c, g = out["cpu"], out["cuda"]
+    worst = {}
+    for key in ("g", "mu", "nu"):
+        worst[key] = max(float(np.abs(g[key][n] - c[key][n]).max())
+                         / max(float(np.abs(c[key][n]).max()), 1e-30)
+                         for n in c[key])
+    # Adam's first step lr * g / (|g| + eps) moves apart by at most
+    # lr eps e / (|g| - e + eps)^2 for a gradient error e while |g| > 2e
+    # (doubled here), by 2 lr where |g| <= 2e; 3e-7 for rounding
+    moved = total = over = 0
+    for n in c["p"]:
+        e = np.abs(g["g"][n] - c["g"][n]).max()
+        a = np.abs(c["g"][n])
+        bound = np.where(a > 2 * e, 2 * lr * 1e-8 * e / (a - e + 1e-8) ** 2,
+                         2 * lr) + 3e-7
+        d = np.abs(g["p"][n] - c["p"][n])
+        over += int((d > bound).sum())
+        moved += int((d > 3e-7).sum())
+        total += d.size
+    say("train (a) cuda vs cpu", f"gru32 5to50, 4 crops of 64 px, lr {lr}: "
+        f"loss {g['loss']:.7f} / {c['loss']:.7f}, PSNR {g['psnr']:.4f} / "
+        f"{c['psnr']:.4f} dB; worst error over each tensor's max: grad "
+        f"{worst['g']:.2e}, mu {worst['mu']:.2e}, nu {worst['nu']:.2e}; "
+        f"params: {over} entries beyond Adam's bound for their gradient "
+        f"error, {moved} of {total} apart by > 3e-7")
+    if abs(g["loss"] - c["loss"]) > 1e-4 * abs(c["loss"]):
+        raise AssertionError("train step: loss differs between card and CPU")
+    if max(worst.values()) > 1e-3:
+        raise AssertionError(f"train step: gradients or moments differ "
+                             f"{worst}")
+    if over or moved > 0.01 * total:
+        raise AssertionError(f"train step: parameters differ ({over} over "
+                             f"the bound, {moved} of {total} moved)")
+
+
+def train_full_width(tmp, fp32_peak, peak_key) -> None:
+    """(b) GRU_5to50_norm_mix.yml as written (gru32 nf=32, batch 64,
+    patch 256, WarmupCosine at 2e-4) from a fresh init equal to JAX's,
+    one epoch of 12 steps over a 768-crop synthetic set built once
+    through the disk cache, "torch" fields, TF32 off; save_freq 1 so
+    that epoch 1 writes its `last` checkpoint."""
+    from yondx_torch.data.datasets import SyntheticSRGBDataset
+    from yondx_torch.models.registry import param_count
+    from yondx_torch.models.unets import load_model
+    from yondx_torch.train import AWGNTrainer
+    from yondx_torch.train.draws import train_keys
+    n_steps, warm = 12, 2
+    args = _train_args(TRAIN_RUNFILE, tmp,
+                       dst_train={"synthetic_len": 64 * n_steps},
+                       dst_eval={"synthetic_len": 64})
+    args["hyper"]["save_freq"] = 1
+    t = time.perf_counter()
+    for mode, n in (("train", 64 * n_steps), ("eval", 64)):
+        SyntheticSRGBDataset(length=n, size=256,
+                             seed=1997 if mode == "train" else 2024)
+    say("train (b)", f"built the synthetic sets (768 + 64 crops of 256 px) "
+        f"through the disk cache in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    tr = AWGNTrainer(args, device="cuda", field="torch")
+    say("train (b)", f"trainer with a fresh init equal to JAX's "
+        f"({param_count(tr.model)} parameters) in "
+        f"{time.perf_counter() - t:.2f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    tr.train(stop_epoch=1)
+    wall = time.perf_counter() - t
+    peak_mem = torch.cuda.max_memory_allocated()
+    steps = tr.steps
+    if len(steps) != n_steps:
+        raise AssertionError(f"{len(steps)} steps run, expected {n_steps}")
+    losses = [s["loss"] for s in steps]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    timed = steps[warm:]
+    step_s = float(np.median([s["step_s"] for s in timed]))
+    load_s = sum(s["loader_s"] for s in timed)
+    share = load_s / (load_s + sum(s["step_s"] for s in timed))
+    px = 64 * 128 * 128                     # RGGB pixels a step
+    per_px = net_flop_per_pixel(tr.model)
+    tflops = 3 * per_px * px / step_s / 1e12
+    say("train (b)", f"gru32 nf=32 fp32 (TF32 off), batch 64 x [128,128,4]: "
+        f"{step_s * 1e3:.2f} ms/step (median of steps {warm + 1}-{n_steps}, "
+        f"synchronised; all {[round(s['step_s'] * 1e3, 2) for s in steps]} "
+        f"ms), {64 / step_s:.1f} samples/s, {px / step_s / 1e6:.2f} RGGB "
+        f"MP/s; net {tflops:.2f} TFLOP/s (3 x {per_px / 1e6:.4f} MFLOP per "
+        f"RGGB pixel), {100 * tflops * 1e12 / fp32_peak:.1f}% of the "
+        f"{fp32_peak / 1e12:.0f} TFLOP/s fp32 peak ({peak_key}); peak memory "
+        f"{peak_mem / 2 ** 30:.2f} GiB; loader share {100 * share:.2f}%; "
+        f"{wall:.2f} s for the epoch")
+    say("train (b)", "loss per step " + ", ".join(f"{v:.5f}" for v in losses)
+        + f"; train PSNR {tr.train_psnr.avg:.4f} dB")
+    last = os.path.join(args["fast_ckpt"],
+                        "Gaussian_GRU_mix_5to50_norm_last_model.ckpt")
+    if not os.path.exists(last):
+        raise AssertionError("the last checkpoint was not written")
+    # where a step's time goes: one more step under the profiler, at lr 0
+    # (Adam then moves no weight, so the checkpoint still matches the net)
+    ds = SyntheticSRGBDataset(length=64 * n_steps, size=256, seed=1997)
+    batch = np.stack([ds[i] for i in range(64)])
+    keys = next(train_keys(7))
+    profile_run("train profile", lambda: tr.train_step(batch, keys, 0.0))
+    p_run, _ = tr.eval(epoch=-1, sigma=25)
+    tr.model = load_model(args["arch"], last, device="cuda")
+    p_back, _ = tr.eval(epoch=-1, sigma=25)
+    say("train (b)", f"eval at sigma 25: {p_run:.4f} dB after the run, "
+        f"{p_back:.4f} dB through load_model of the last checkpoint")
+    if abs(p_run - p_back) > 1e-4:
+        raise AssertionError("the last checkpoint evaluates apart from the "
+                             "net that wrote it")
+
+
+def train_quality_anchor(tmp) -> None:
+    """(c) AWGNTrainer.eval on the card with the committed 5to50 best
+    checkpoint on the runfile's eval set cut to 64 crops, against the
+    JAX package's CPU readings (JAX_EVAL) within 0.02 dB."""
+    from yondx_torch.io.ckpt import load_checkpoint
+    from yondx_torch.train import AWGNTrainer
+    args = _train_args(TRAIN_RUNFILE, tmp, dst_eval={"synthetic_len": 64})
+    tr = AWGNTrainer(args, device="cuda", field="torch")
+    tr.load_params(load_checkpoint(os.path.join(
+        CKPTS, "Gaussian_GRU_mix_5to50_norm_best_model.ckpt"))["params"])
+    for sigma, (want_p, want_s) in JAX_EVAL.items():
+        t = time.perf_counter()
+        p, ssim = tr.eval(epoch=-1, sigma=sigma)
+        say("train (c)", f"sigma {sigma}: eval PSNR {p:.4f} dB (JAX CPU "
+            f"{want_p:.4f}, diff {p - want_p:+.4f}), SSIM {ssim:.4f} (JAX "
+            f"{want_s:.4f}); {time.perf_counter() - t:.2f} s")
+        if abs(p - want_p) > 0.02:
+            raise AssertionError(f"eval PSNR at sigma {sigma}: {p:.4f} not "
+                                 f"within 0.02 dB of {want_p}")
+
+
+def train_distill_resume(tmp) -> None:
+    """(d) GRUS2DT_distill_ftC.yml as written (s2dt16 student, gru32
+    teacher, distill weight 0.5, chroma_aug, batch 64), resumed with
+    last_epoch -1 from copies of the committed s2dt16 `last` checkpoint
+    (epoch 200 with its Adam state) and the teacher; stop_epoch 201, two
+    steps."""
+    import shutil
+    from yondx_torch.train import AWGNTrainer
+    args = _train_args(DISTILL_RUNFILE, tmp,
+                       dst_train={"synthetic_len": 64 * 12})
+    args["hyper"]["last_epoch"] = -1
+    args["hyper"]["stop_epoch"] = 201
+    os.makedirs(args["fast_ckpt"])
+    for name in ("Gaussian_GRUS2DT_mix_1to50c_norm_last_model.ckpt",
+                 "Gaussian_GRU_mix_1to50c_norm_best_model.ckpt"):
+        shutil.copy(os.path.join(CKPTS, name), args["fast_ckpt"])
+    tr = AWGNTrainer(args, device="cuda", field="torch")
+    count0 = {int(st["step"]) for st in tr.optimizer.state.values()}
+    if tr.epoch != 200 or count0 != {6400}:
+        raise AssertionError(f"resumed at epoch {tr.epoch} with Adam counts "
+                             f"{count0}, expected 200 and 6400")
+    tr.train(steps_per_epoch=2)
+    counts = {int(st["step"]) for st in tr.optimizer.state.values()}
+    losses = [s["loss"] for s in tr.steps]
+    say("train (d)", f"s2dt16 distill (teacher gru32 1to50c, w 0.5, "
+        f"chroma_aug), resumed at epoch 200, Adam count 6400 -> "
+        f"{sorted(counts)}; losses {[round(v, 5) for v in losses]}; "
+        f"{[round(s['step_s'] * 1e3, 2) for s in tr.steps]} ms/step "
+        "(the first includes cuDNN planning)")
+    if counts != {6402} or len(losses) != 2 or \
+            not np.all(np.isfinite(losses)):
+        raise AssertionError("distill resume: Adam count or losses wrong")
+
+
+def train_phase(fp32_peak, peak_key) -> None:
+    """Phase 10: training on the card, (a)-(d), in a temporary directory
+    that also holds ./logs/; TF32 off throughout."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            train_step_card_vs_cpu(os.path.join(tmp, "a"))
+            train_full_width(os.path.join(tmp, "b"), fp32_peak, peak_key)
+            train_quality_anchor(os.path.join(tmp, "c"))
+            train_distill_resume(os.path.join(tmp, "d"))
+        finally:
+            os.chdir(REPO)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, metavar="DIR",
@@ -752,6 +992,9 @@ def main(argv=None) -> dict:
 
     # 9. the frozen held-out quality gate (eval_synth --heldout) ------------
     heldout_launches = heldout_gate(out_dir)
+
+    # 10. training (trainer_awgn's AWGNTrainer) ------------------------------
+    train_phase(fp32, peak_key)
 
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",

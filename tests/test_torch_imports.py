@@ -56,3 +56,28 @@ def test_port_imports_without_jax_flax_msgpack_yaml_or_yondx():
     want = ["yondx_torch"] + [m.name for m in pkgutil.walk_packages(
         yondx_torch.__path__, "yondx_torch.")]
     assert res.stdout.split() == want
+
+
+TRAINING = ["yondx_torch.train", "yondx_torch.train.trainer",
+            "yondx_torch.train.losses", "yondx_torch.train.schedule",
+            "yondx_torch.train.ckpt", "yondx_torch.train.draws",
+            "yondx_torch.train.s2d_port", "yondx_torch.cli.trainer_awgn",
+            "yondx_torch.core.meters", "yondx_torch.data.noise",
+            "yondx_torch.data.augment"]
+
+
+def test_training_modules_are_in_the_refused_import_run():
+    """The training slice's modules are among those the guarded run
+    imports, and none of their sources names a refused package."""
+    names = [m.name for m in pkgutil.walk_packages(yondx_torch.__path__,
+                                                   "yondx_torch.")]
+    assert set(TRAINING) <= set(names)
+    for name in TRAINING:
+        path = os.path.join(REPO, *name.split(".")) + ".py"
+        if not os.path.exists(path):
+            path = os.path.join(REPO, *name.split("."), "__init__.py")
+        with open(path) as f:
+            src = f.read()
+        for pkg in ("jax", "flax", "optax", "msgpack", "yondx."):
+            assert f"import {pkg}" not in src and f"from {pkg}" not in src, \
+                (name, pkg)

@@ -14,3 +14,10 @@ def log(msg: str, logfile: Optional[str] = None, notime: bool = False) -> None:
         os.makedirs(os.path.dirname(logfile) or ".", exist_ok=True)
         with open(logfile, "a") as f:
             f.write(line + "\n")
+
+
+def timestamp(points: list, idx: int) -> float:
+    """Stage timer: record now at points[idx], return the time since
+    points[idx - 1]."""
+    points[idx] = time.time()
+    return points[idx] - points[idx - 1]

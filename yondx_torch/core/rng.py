@@ -106,14 +106,54 @@ def _fma(a, b, c):
             + np.asarray(c, np.float64)).astype(_F32)
 
 
-def uniform(key, shape=(), minval=0.0, maxval=1.0) -> np.ndarray:
-    """jax.random.uniform(key, shape, float32, minval, maxval)."""
+def _uniform_bits(bits, minval, maxval) -> np.ndarray:
     lo = _F32(minval)
     hi = _F32(maxval)
-    bits = random_bits(key, shape)
-    mant = (bits >> _U32(32 - 23)) | _U32(0x3F800000)
+    mant = (np.asarray(bits, _U32) >> _U32(32 - 23)) | _U32(0x3F800000)
     floats = mant.view(_F32) - _F32(1.0)
-    return np.maximum(lo, _fma(floats, hi - lo, lo)).reshape(tuple(shape))
+    return np.maximum(lo, _fma(floats, hi - lo, lo))
+
+
+def uniform(key, shape=(), minval=0.0, maxval=1.0) -> np.ndarray:
+    """jax.random.uniform(key, shape, float32, minval, maxval)."""
+    return _uniform_bits(random_bits(key, shape), minval,
+                         maxval).reshape(tuple(shape))
+
+
+# The same draws for a batch of keys [n, 2] at once (one row per key), as
+# n calls of the functions above give them: for the per-crop draws of a
+# training batch.
+
+def split_each(keys, num: int = 2) -> np.ndarray:
+    """split(k, num) of every key of keys [n, 2] -> uint32[n, num, 2]."""
+    keys = np.asarray(keys, _U32)
+    hi, lo = _iota_2x32((int(num),))
+    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], hi, lo)
+    return np.stack([b1, b2], axis=-1)
+
+
+def _bits_each(keys, shape) -> np.ndarray:
+    keys = np.asarray(keys, _U32)
+    shape = tuple(shape)
+    expand = (len(keys),) + (1,) * len(shape)
+    if shape:
+        hi, lo = _iota_2x32(shape)
+    else:
+        hi = lo = np.zeros((), _U32)
+    b1, b2 = threefry2x32(keys[:, 0].reshape(expand),
+                          keys[:, 1].reshape(expand), hi, lo)
+    return np.asarray(b1 ^ b2, _U32)
+
+
+def uniform_each(keys, shape=(), minval=0.0, maxval=1.0) -> np.ndarray:
+    """uniform(k, shape, minval, maxval) of every key -> [n, *shape]."""
+    return _uniform_bits(_bits_each(keys, shape), minval, maxval)
+
+
+def normal_each(keys, shape=()) -> np.ndarray:
+    """normal(k, shape) of every key -> [n, *shape]."""
+    u = uniform_each(keys, shape, np.nextafter(_F32(-1.0), _F32(0.0)), 1.0)
+    return (_F32(np.sqrt(2)) * erfinv_f32(u)).astype(_F32)
 
 
 # XLA's ErfInv for float32 (M. Giles, "Approximating the erfinv function"),
@@ -222,3 +262,25 @@ def rng_seq(seed_or_key):
     while True:
         key, sub = split(key)
         yield sub
+
+
+# XLA CPU's float32 exp (Cephes): n = floor(x log2(e) + 1/2) clamped to
+# [-127, 127], the remainder r = x - n ln2 in two fused steps, a degree-5
+# polynomial in fmas, times 2^n built from the exponent bits
+_EXP_P = (1.9875691500E-4, 1.3981999507E-3, 8.3334519073E-3,
+          4.1665795894E-2, 1.6666665459E-1, 5.0000001201E-1)
+
+
+def exp_f32(x) -> np.ndarray:
+    """jnp.exp(x) for float32 as XLA's CPU backend evaluates it."""
+    x = np.clip(np.asarray(x, _F32), _F32(-87.8), _F32(88.8))
+    n = np.floor(_fma(x, _F32(1.44269504088896341), _F32(0.5)))
+    n = np.clip(n, _F32(-127), _F32(127))
+    r = _fma(_F32(-0.693359375), n, x)
+    r = _fma(_F32(2.12194440e-4), n, r)
+    z = _fma(r, _F32(_EXP_P[0]), _F32(_EXP_P[1]))
+    for c in _EXP_P[2:]:
+        z = _fma(z, r, _F32(c))
+    z = _F32(1) + _fma(z, r * r, r)
+    two_n = ((n.astype(np.int32) + 127) << 23).astype(np.int32).view(_F32)
+    return np.asarray(z * two_n, _F32)

@@ -1,25 +1,111 @@
-"""Procedural sRGB crops for data-free training and evaluation (port of
-yondx/data/datasets.py:115-289: `SyntheticSRGBDataset` and
-`_bilinear_resize`, numpy, copied).
+"""Host-side datasets and the batch loader (port of yondx/data/datasets.py).
 
-Multi-octave smooth fields, flat rectangles, band-limited textures,
-sharp edges, block-mosaic charts and thin strokes, deterministic per
-index. `python -m yondx_torch.cli.eval_synth --content texture` builds
-its scenes from it.
+The host produces uint8 sRGB crops; the trainer moves them to the device,
+where the unprocessing and the noise run (train/trainer.py).
+
+- `NpyFolderDataset`: a directory of {train,eval}/*.npy sRGB crops (uint8
+  or uint16), with a batched readinto path for uniform corpora;
+- `SyntheticSRGBDataset`: procedural crops (multi-octave smooth fields,
+  flat rectangles, band-limited textures, sharp edges, block-mosaic
+  charts and thin strokes), deterministic per index, numpy copied from
+  the JAX package; the whole set is built once at construction into an
+  .npy disk cache and memory-mapped after that. `python -m
+  yondx_torch.cli.eval_synth --content texture` builds its scenes from it;
+- `BatchLoader`: shuffled drop-last batches, a thread pool prefetching in
+  submission order (the order of the single-threaded loader).
 """
 from __future__ import annotations
 
+import glob
+import os
+import tempfile
+import threading
+from typing import Iterator, Optional
+
 import numpy as np
+
+# the port's own cache directory (the JAX package uses /tmp/yondx_synth)
+DEFAULT_DISK_CACHE = os.path.join(tempfile.gettempdir(), "yondx_torch_synth")
+
+
+class NpyFolderDataset:
+    """Directory of npy sRGB crops: {root}/{mode}[_{subname}]/*.npy."""
+
+    def __init__(self, root_dir: str, mode: str = "train",
+                 subname: Optional[str] = None):
+        sub = f"{mode}_{subname}" if (mode == "train" and subname) else mode
+        self.dir = os.path.join(root_dir, sub)
+        self.paths = sorted(glob.glob(os.path.join(self.dir, "*.npy")))
+        if not self.paths:
+            raise FileNotFoundError(f"no npy crops under {self.dir}")
+        self.names = [os.path.basename(p)[:-4] for p in self.paths]
+        self._probe_lock = threading.Lock()
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        arr = np.load(self.paths[idx])
+        if arr.dtype == np.uint8:
+            return arr            # the train step normalises uint8
+        return arr.astype(np.float32) / 65535.0
+
+    def _probe_headers(self):
+        """One stat per file and a 16-file header sample: a corpus of equal
+        file sizes and identical sampled headers gets one data offset."""
+        from numpy.lib import format as npf
+        self._fast = False
+        if len({os.path.getsize(p) for p in self.paths}) != 1:
+            return
+        n = len(self.paths)
+        sample = {0, n - 1, n // 2} | set(range(min(16, n)))
+        shape = dtype = off = None
+        for i in sorted(sample):
+            with open(self.paths[i], "rb") as f:
+                ver = npf.read_magic(f)
+                shp, fortran, dt = npf._read_array_header(f, ver)
+                if fortran:
+                    return
+                if shape is None:
+                    shape, dtype, off = shp, dt, f.tell()
+                elif (shp, dt, f.tell()) != (shape, dtype, off):
+                    return
+        self._offset = off
+        self.item_shape = shape
+        self.item_dtype = dtype
+        self._fast = np.dtype(dtype) == np.dtype(np.uint8)
+
+    def read_batch(self, idxs) -> Optional[np.ndarray]:
+        """Items `idxs` read into one [B, ...] array with readinto; None
+        when the corpus is not uniform uint8 (the caller then stacks
+        items)."""
+        with self._probe_lock:
+            if not hasattr(self, "_fast"):
+                self._probe_headers()
+        if not self._fast:
+            return None
+        out = np.empty((len(idxs),) + tuple(self.item_shape),
+                       self.item_dtype)
+        flat = out.reshape(len(idxs), -1)
+        for j, i in enumerate(idxs):
+            with open(self.paths[int(i)], "rb") as f:
+                f.seek(self._offset)
+                f.readinto(memoryview(flat[j]).cast("B"))
+        return out
 
 
 class SyntheticSRGBDataset:
     """Procedural sRGB crops: multi-octave smooth fields + flat rectangles
     + band-limited textures + sharp edges, per-index deterministic (the
-    eval-mode setup_seed(idx) contract). Items are memoized in RAM (the
-    JAX package's optional .npy disk cache is left out)."""
+    eval-mode setup_seed(idx) contract). With `cache` and a `disk_cache`
+    directory every item is built at construction into
+    v{version}_s{seed}_p{size}_n{length}.npy there (or memory-mapped from
+    it when present); otherwise items are memoized in RAM as they are
+    built."""
 
     def __init__(self, length: int = 1024, size: int = 256, seed: int = 1997,
-                 cache: bool = True, version: int = 6):
+                 cache: bool = True, disk_cache: str = DEFAULT_DISK_CACHE,
+                 version: int = 6):
         self.length = length
         self.size = size
         self.seed = seed
@@ -28,11 +114,27 @@ class SyntheticSRGBDataset:
         # an axis-aligned angle mode)
         self.version = version
         self._cache = {} if cache else None
+        self._disk = None
+        if cache and disk_cache:
+            os.makedirs(disk_cache, exist_ok=True)
+            path = os.path.join(disk_cache,
+                                f"v{version}_s{seed}_p{size}_n{length}.npy")
+            if os.path.exists(path):
+                self._disk = np.load(path, mmap_mode="r")
+            else:
+                arr = np.stack([self._generate(i) for i in range(length)])
+                tmp = path.replace(".npy", f".tmp{os.getpid()}.npy")
+                np.save(tmp, arr)
+                os.replace(tmp, path)
+                self._disk = arr
+            self._cache = None
 
     def __len__(self):
         return self.length
 
     def __getitem__(self, idx: int) -> np.ndarray:
+        if self._disk is not None:
+            return np.asarray(self._disk[idx])
         if self._cache is not None and idx in self._cache:
             return self._cache[idx]
         return self._generate(idx)
@@ -162,3 +264,51 @@ def _bilinear_resize(g: np.ndarray, S: int) -> np.ndarray:
     d = g[y0 + 1][:, x0 + 1]
     return ((1 - wy) * ((1 - wx) * a + wx * b)
             + wy * ((1 - wx) * c + wx * d)).astype(np.float32)
+
+
+class BatchLoader:
+    """Shuffled, drop-last batches with a thread pool of `workers` that
+    keeps `prefetch` batches in flight and yields them in submission
+    order, so the order is that of a single-threaded loader."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, prefetch: int = 8, workers: int = 8):
+        self.ds = dataset
+        self.bs = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.prefetch = max(prefetch, workers)
+        self.workers = max(1, workers)
+
+    def __len__(self):
+        return len(self.ds) // self.bs
+
+    def _load_batch(self, idxs) -> np.ndarray:
+        rb = getattr(self.ds, "read_batch", None)
+        if rb is not None:
+            out = rb(idxs)
+            if out is not None:
+                return out
+        return np.stack([self.ds[int(i)] for i in idxs])
+
+    def epoch(self, epoch: int = 0) -> Iterator[np.ndarray]:
+        """The batches of an epoch, in the order that
+        np.random.default_rng(seed + epoch) shuffles the items into."""
+        from concurrent.futures import ThreadPoolExecutor
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        starts = iter(range(0, len(order) - self.bs + 1, self.bs))
+        with ThreadPoolExecutor(max_workers=self.workers) as pool:
+            pending = []
+            for s in starts:
+                pending.append(pool.submit(self._load_batch,
+                                           order[s:s + self.bs]))
+                if len(pending) >= self.prefetch:
+                    break
+            for s in starts:
+                yield pending.pop(0).result()
+                pending.append(pool.submit(self._load_batch,
+                                           order[s:s + self.bs]))
+            while pending:
+                yield pending.pop(0).result()

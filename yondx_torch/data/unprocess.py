@@ -230,3 +230,81 @@ def srgb_to_pseudo_raw(key, imgs, bayer_aug_enabled: bool = True):
     else:
         pattern = np.zeros((B,), np.int32)
     return raw, wb, cam2rgb, torch.from_numpy(pattern)
+
+
+# ---------------------------------------------------------------------------
+# The trainer's transform on the device. Each crop's camera (CCM, gains)
+# and CFA pattern are drawn on the host from the same keys as above (a few
+# numbers per crop); the image arithmetic runs in float32 torch on the
+# images' device, within ~1e-6 of the JAX package (its sin/asin/pow are
+# not libm's bit for bit). The host chain above stays the bit-exact one
+# for the held-out scenes.
+
+def _cameras(key, n: int):
+    """The per-crop draws of unprocess_batch for n crops at once:
+    rgb2cam [n,3,3] and (rgb_gain, red, blue) [n,3] as random_ccm and
+    random_gains give them crop by crop (bit for bit), and cam2rgb
+    [n,3,3], the inverse in float64 rounded to float32 (the sample dump's
+    only use; within 1e-6 of the LAPACK float32 inverse)."""
+    k = rng.split_each(rng.split(key, n))          # [n, (ccm, gain), 2]
+    w = rng.uniform_each(k[:, 0], (4, 1, 1), 1e-8, 1e8)
+    terms = XYZ2CAMS * w
+    num = ((terms[:, 0] + terms[:, 1]) + terms[:, 2]) + terms[:, 3]
+    den = ((w[:, 0] + w[:, 1]) + w[:, 2]) + w[:, 3]
+    rgb2cam = _dot3((num / den).astype(_F32), RGB2XYZ.T)
+    rgb2cam = (rgb2cam / _sum3(rgb2cam)[..., None]).astype(_F32)
+    cam2rgb = np.linalg.inv(rgb2cam.astype(np.float64)).astype(_F32)
+    kg = rng.split_each(k[:, 1], 4)                # [n, 4, 2]
+    nrm = (_F32(0.8) + (_F32(0.1) * rng.normal_each(kg[:, 0])
+                        ).astype(_F32)).astype(_F32)
+    dark = rng.uniform_each(kg[:, 1]) >= _F32(0.9)
+    rgb_gain = np.where(dark, _F32(0.2) / nrm, _F32(1.0) / nrm)
+    red = rng.uniform_each(kg[:, 2], (), 1.4, 2.5)
+    blue = rng.uniform_each(kg[:, 3], (), 1.5, 2.4)
+    gains = np.stack([rgb_gain, red, blue], axis=1).astype(_F32)
+    return rgb2cam, cam2rgb, gains
+
+
+def srgb_to_pseudo_raw_device(key, imgs, bayer_aug_enabled: bool = True):
+    """The training-data transform minus the noise, on the device of
+    `imgs` (a float [B,H,W,3] tensor in [0,1]): inverse smoothstep, gamma
+    2.2, the crop's rgb2cam, inverse gains with the highlight mask, clip,
+    RGGB mosaic, and with bayer_aug_enabled the CFA turn. Returns
+    (clean_rggb [B,h,w,4], wb [B,3], cam2rgb [B,3,3], pattern [B] int32)
+    tensors on that device.
+
+    As in the JAX package (and `srgb_to_pseudo_raw` above), every crop's
+    mosaic turns by k = 3 whatever pattern it drew: its `lax.switch`
+    branches close over the comprehension's last index."""
+    dev = imgs.device
+    B = imgs.shape[0]
+    k_un, k_pat = rng.split(key)
+    rgb2cam, cam2rgb, g = _cameras(k_un, B)
+    rgb_gain, red, blue = g[:, 0], g[:, 1], g[:, 2]
+    inv = np.stack([_F32(1.0) / red, np.ones(B, _F32), _F32(1.0) / blue],
+                   axis=1) / rgb_gain[:, None]
+    m = torch.from_numpy(rgb2cam).to(dev)
+    gains = torch.from_numpy(inv.astype(_F32)).to(dev)[:, None, None, :]
+    x = torch.clamp(imgs, 0.0, 1.0)
+    x = 0.5 - torch.sin(torch.asin(1.0 - 2.0 * x) / 3.0)
+    x = torch.clamp(x, min=1e-8) ** 2.2
+    # the 3x3 colour matrix as explicit fp32 sums (no TF32 matmul)
+    x = torch.stack([x[..., 0] * m[:, d, 0, None, None]
+                     + x[..., 1] * m[:, d, 1, None, None]
+                     + x[..., 2] * m[:, d, 2, None, None]
+                     for d in range(3)], dim=-1)
+    gray = torch.mean(x, dim=-1, keepdim=True)
+    mask = (torch.clamp(gray - 0.9, min=0.0) / (1.0 - 0.9)) ** 2
+    x = torch.clamp(x * torch.maximum(mask + (1.0 - mask) * gains, gains),
+                    0.0, 1.0)
+    raw = torch.stack([x[:, 0::2, 0::2, 0], x[:, 0::2, 1::2, 1],
+                       x[:, 1::2, 0::2, 1], x[:, 1::2, 1::2, 2]], dim=-1)
+    if bayer_aug_enabled:
+        pattern = rng.randint(k_pat, (B,), 0, 4)
+        raw = bayer_aug(raw, 3)
+    else:
+        pattern = np.zeros((B,), np.int32)
+    wb = np.stack([red, np.ones(B, _F32), blue], axis=1)
+    return (raw, torch.from_numpy(wb).to(dev),
+            torch.from_numpy(cam2rgb).to(dev),
+            torch.from_numpy(pattern).to(dev))

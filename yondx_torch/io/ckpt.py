@@ -1,11 +1,15 @@
-"""Checkpoint reader for the flax msgpack `.ckpt` files (yondx/train/ckpt.py).
+"""Reader and writer of the flax msgpack `.ckpt` files (yondx/train/ckpt.py).
 
 A checkpoint is one msgpack map {params, opt_state, epoch, best_psnr}
 written by `flax.serialization.msgpack_serialize`. Arrays are msgpack ext
 type 1: a nested msgpack array (shape, dtype name, C-order bytes); numpy
-scalars are ext type 3 in the same encoding. This module decodes that
-format in pure Python + numpy (no msgpack or flax package needed) and
-skips `opt_state` without materializing it (two thirds of the file).
+scalars are ext type 3 in the same encoding. This module decodes and
+encodes that format in pure Python + numpy (no msgpack or flax package
+needed). The reader skips `opt_state` without materializing it (two
+thirds of a file) unless asked for it; the writer emits what flax emits
+for the same tree, byte for byte: map keys sorted at every level (flax
+rebuilds the tree with jax.tree_util first), the smallest msgpack form
+of every int, str, bin, array and map header, floats as float64.
 """
 from __future__ import annotations
 
@@ -142,13 +146,112 @@ def read_msgpack(buf: bytes, skip_keys=()) -> Any:
     return out
 
 
-def load_checkpoint(path: str) -> Dict[str, Any]:
+def load_checkpoint(path: str, opt_state: bool = False) -> Dict[str, Any]:
     """Read a yondx `.ckpt` into {params, epoch, best_psnr} of numpy
-    leaves (the flax variable tree, e.g. {'params': {...}}); the
-    optimizer state is skipped."""
+    leaves (the flax variable tree, e.g. {'params': {...}}), and its
+    `opt_state` tree when asked (else it is skipped)."""
     with open(path, "rb") as f:
         buf = f.read()
-    return read_msgpack(buf, skip_keys=("opt_state",))
+    return read_msgpack(buf, skip_keys=() if opt_state else ("opt_state",))
+
+
+# ------------------------------------------------------------------ writer
+
+def _pack_header(out: list, kind: str, n: int) -> None:
+    """Append the msgpack header of a str/bin/array/map of length n."""
+    fix = {"str": (0xa0, 32), "array": (0x90, 16), "map": (0x80, 16)}
+    if kind in fix and n < fix[kind][1]:
+        out.append(bytes([fix[kind][0] | n]))
+        return
+    codes = {"str": (0xd9, 0xda, 0xdb), "bin": (0xc4, 0xc5, 0xc6),
+             "array": (None, 0xdc, 0xdd), "map": (None, 0xde, 0xdf)}[kind]
+    if n < 256 and codes[0] is not None:
+        out.append(struct.pack(">BB", codes[0], n))
+    elif n < 65536:
+        out.append(struct.pack(">BH", codes[1], n))
+    else:
+        out.append(struct.pack(">BI", codes[2], n))
+
+
+def _pack_int(out: list, v: int) -> None:
+    if 0 <= v < 128:
+        out.append(struct.pack(">B", v))
+    elif -32 <= v < 0:
+        out.append(struct.pack(">b", v))
+    elif v >= 0:
+        for fmt, code in ((">B", 0xcc), (">H", 0xcd), (">I", 0xce),
+                          (">Q", 0xcf)):
+            if v < 1 << (8 * struct.calcsize(fmt)):
+                out.append(bytes([code]) + struct.pack(fmt, v))
+                return
+        raise OverflowError(v)
+    else:
+        for fmt, code in ((">b", 0xd0), (">h", 0xd1), (">i", 0xd2),
+                          (">q", 0xd3)):
+            bits = 8 * struct.calcsize(fmt) - 1
+            if v >= -(1 << bits):
+                out.append(bytes([code]) + struct.pack(fmt, v))
+                return
+        raise OverflowError(v)
+
+
+def _pack_ext(out: list, code: int, data: bytes) -> None:
+    n = len(data)
+    fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if n in fixext:
+        out.append(struct.pack(">Bb", fixext[n], code))
+    elif n < 256:
+        out.append(struct.pack(">BBb", 0xc7, n, code))
+    elif n < 65536:
+        out.append(struct.pack(">BHb", 0xc8, n, code))
+    else:
+        out.append(struct.pack(">BIb", 0xc9, n, code))
+    out.append(data)
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    arr = np.asarray(arr)
+    out: list = []
+    _pack_header(out, "array", 3)
+    _pack_header(out, "array", arr.ndim)
+    for d in arr.shape:
+        _pack_int(out, int(d))
+    _pack(out, arr.dtype.name)
+    raw = arr.tobytes("C")
+    _pack_header(out, "bin", len(raw))
+    out.append(raw)
+    return b"".join(out)
+
+
+def _pack(out: list, obj: Any) -> None:
+    if isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_to_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(obj)))
+    elif type(obj) is int:
+        _pack_int(out, obj)
+    elif type(obj) is float:
+        out.append(struct.pack(">Bd", 0xcb, obj))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_header(out, "str", len(raw))
+        out.append(raw)
+    elif isinstance(obj, dict):
+        _pack_header(out, "map", len(obj))
+        for k in sorted(obj):
+            _pack(out, k)
+            _pack(out, obj[k])
+    else:
+        raise TypeError(f"cannot encode {type(obj).__name__} in a .ckpt")
+
+
+def write_msgpack(obj: Any) -> bytes:
+    """Encode a tree of dicts (str keys) with numpy arrays and scalars,
+    ints, floats and strings as flax.serialization.msgpack_serialize
+    does; any other type raises TypeError."""
+    out: list = []
+    _pack(out, obj)
+    return b"".join(out)
 
 
 def find_checkpoint(fast_ckpt: str, model_name: str) -> Optional[str]:
