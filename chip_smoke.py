@@ -700,8 +700,13 @@ def train_distill_resume(tmp) -> None:
     teacher, distill weight 0.5, chroma_aug, batch 64), resumed with
     last_epoch -1 from copies of the committed s2dt16 `last` checkpoint
     (epoch 200 with its Adam state) and the teacher; stop_epoch 201, two
-    steps."""
+    steps. The SGDR schedule gives lr 0 at epoch 201, so the steps move
+    no weight: the loaded Adam moments are held, exactly, against the
+    file's optax mu and nu on a conv, a Dense and a deconv leaf (laid out
+    here by hand: HWIO -> OIHW, [in, out] -> [out, in], and the deconv's
+    spatial flip to [in, out, kh, kw])."""
     import shutil
+    from yondx_torch.io.ckpt import load_checkpoint
     from yondx_torch.train import AWGNTrainer
     args = _train_args(DISTILL_RUNFILE, tmp,
                        dst_train={"synthetic_len": 64 * 12})
@@ -716,12 +721,35 @@ def train_distill_resume(tmp) -> None:
     if tr.epoch != 200 or count0 != {6400}:
         raise AssertionError(f"resumed at epoch {tr.epoch} with Adam counts "
                              f"{count0}, expected 200 and 6400")
+    inner = load_checkpoint(os.path.join(
+        args["fast_ckpt"], "Gaussian_GRUS2DT_mix_1to50c_norm_last_model.ckpt"),
+        opt_state=True)["opt_state"]["inner_state"]["0"]
+    pmap = dict(tr.model.named_parameters())
+    held = {("conv1", "conv1", "kernel"): lambda a: a.transpose(3, 2, 0, 1),
+            ("conv1", "guide", "gamma_out", "kernel"): lambda a: a.T,
+            ("upv5", "deconv", "kernel"):
+                lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1),
+            ("conv1", "conv1", "bias"): lambda a: a}
+    for path, layout in held.items():
+        name = ".".join(path[:-1] + ("weight" if path[-1] == "kernel"
+                                     else path[-1],))
+        st = tr.optimizer.state[pmap[name]]
+        for moment, mine in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            leaf = inner[moment]["params"]
+            for k in path:
+                leaf = leaf[k]
+            if not np.array_equal(layout(np.asarray(leaf)),
+                                  st[mine].cpu().numpy()):
+                raise AssertionError(f"distill resume: {mine} of {name} is "
+                                     f"not the file's {moment}")
     tr.train(steps_per_epoch=2)
     counts = {int(st["step"]) for st in tr.optimizer.state.values()}
     losses = [s["loss"] for s in tr.steps]
     say("train (d)", f"s2dt16 distill (teacher gru32 1to50c, w 0.5, "
         f"chroma_aug), resumed at epoch 200, Adam count 6400 -> "
-        f"{sorted(counts)}; losses {[round(v, 5) for v in losses]}; "
+        f"{sorted(counts)} (lr 0 at epoch 201; mu and nu of "
+        f"{len(held)} leaves equal to the file's after the load); "
+        f"losses {[round(v, 5) for v in losses]}; "
         f"{[round(s['step_s'] * 1e3, 2) for s in tr.steps]} ms/step "
         "(the first includes cuDNN planning)")
     if counts != {6402} or len(losses) != 2 or \

@@ -26,6 +26,7 @@ distillation case. Tolerances:
   (loss rtol 1e-5, moments 1e-4 of the max, parameters atol 1e-7).
 """
 import copy
+import functools
 import glob
 import os
 
@@ -36,6 +37,7 @@ import pytest
 import torch
 from flax.serialization import to_state_dict
 
+import yondx.train.trainer as j_trainer_mod
 from yondx.core.meters import AverageMeter as JMeter
 from yondx.parallel.mesh import make_mesh, replicate, shard_batch
 from yondx.train import AWGNTrainer as JTrainer
@@ -123,6 +125,17 @@ def _np_tree(tree):
 @pytest.fixture(scope="module")
 def work(tmp_path_factory):
     return str(tmp_path_factory.mktemp("train"))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_synth_cache_in_work(work):
+    """The JAX trainer's synthetic sets cache into the module's
+    temporary directory, not the JAX package's fixed default."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_trainer_mod, "SyntheticSRGBDataset", functools.partial(
+            j_trainer_mod.SyntheticSRGBDataset,
+            disk_cache=os.path.join(work, "jax_synth")))
+        yield
 
 
 @pytest.fixture(scope="module")

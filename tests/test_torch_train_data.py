@@ -148,23 +148,24 @@ def test_device_srgb_to_pseudo_raw_matches_jax(aug):
 
 
 def test_batched_camera_draws_equal_the_per_crop_draws():
-    """The device transform draws a batch's cameras in one go: rgb2cam
-    and (rgb_gain, red, blue) bit-equal to random_ccm / random_gains crop
-    by crop, cam2rgb within 1e-6 of the per-crop LAPACK inverse."""
-    key = rng.PRNGKey(23)
-    rgb2cam, cam2rgb, gains = t_unprocess._cameras(key, 9)
-    for i, k in enumerate(rng.split(key, 9)):
-        k_ccm, k_gain = rng.split(k)
-        a, b = t_unprocess.random_ccm(k_ccm)
-        np.testing.assert_array_equal(rgb2cam[i], a)
-        np.testing.assert_allclose(cam2rgb[i], b, rtol=0,
-                                   atol=1e-6 * np.abs(b).max())
+    """The port draws a batch's cameras in one go: rgb2cam, cam2rgb and
+    (rgb_gain, red, blue) bit-equal to the JAX package's random_ccm and
+    random_gains crop by crop; the batched normal bit-equal to
+    jax.random.normal key by key."""
+    keys = rng.split(rng.PRNGKey(23), 9)
+    rgb2cam, cam2rgb, gains = t_unprocess._cameras(keys)
+    for i, k in enumerate(keys):
+        k_ccm, k_gain = jax.random.split(jnp.asarray(k))
+        a, b = j_unprocess.random_ccm(k_ccm)
+        np.testing.assert_array_equal(rgb2cam[i], np.asarray(a))
+        np.testing.assert_array_equal(cam2rgb[i], np.asarray(b))
         np.testing.assert_array_equal(gains[i], np.asarray(
-            t_unprocess.random_gains(k_gain), np.float32))
-    keys = rng.split(key, 5)
+            j_unprocess.random_gains(k_gain), np.float32))
+    keys = keys[:5]
     np.testing.assert_array_equal(
         rng.normal_each(keys, (3, 2)),
-        np.stack([rng.normal(k, (3, 2)) for k in keys]))
+        np.stack([np.asarray(jax.random.normal(jnp.asarray(k), (3, 2)))
+                  for k in keys]))
 
 
 # --------------------------------------------------------------- datasets

@@ -79,26 +79,6 @@ def PRNGKey(seed: int) -> np.ndarray:
     return np.array([0, seed & 0xFFFFFFFF], _U32)
 
 
-def split(key, num: int = 2) -> np.ndarray:
-    """jax.random.split(key, num) -> uint32[num, 2]."""
-    k = _key(key)
-    hi, lo = _iota_2x32((int(num),))
-    b1, b2 = threefry2x32(k[0], k[1], hi, lo)
-    return np.stack([b1, b2], axis=-1)
-
-
-def random_bits(key, shape=()) -> np.ndarray:
-    """32 random bits per element: the xor of the hash's two words."""
-    k = _key(key)
-    shape = tuple(shape)
-    if not shape:
-        hi = lo = np.zeros((), _U32)
-    else:
-        hi, lo = _iota_2x32(shape)
-    b1, b2 = threefry2x32(k[0], k[1], hi, lo)
-    return np.asarray(b1 ^ b2, _U32).reshape(shape)
-
-
 def _fma(a, b, c):
     """a * b + c rounded once to float32 (the product of two float32
     values is exact in float64)."""
@@ -114,15 +94,9 @@ def _uniform_bits(bits, minval, maxval) -> np.ndarray:
     return np.maximum(lo, _fma(floats, hi - lo, lo))
 
 
-def uniform(key, shape=(), minval=0.0, maxval=1.0) -> np.ndarray:
-    """jax.random.uniform(key, shape, float32, minval, maxval)."""
-    return _uniform_bits(random_bits(key, shape), minval,
-                         maxval).reshape(tuple(shape))
-
-
-# The same draws for a batch of keys [n, 2] at once (one row per key), as
-# n calls of the functions above give them: for the per-crop draws of a
-# training batch.
+# Every draw takes a batch of keys [n, 2] (one row per key, as n calls of
+# jax.random for one key each give them: the per-crop draws of a batch);
+# the one-key functions are their first row.
 
 def split_each(keys, num: int = 2) -> np.ndarray:
     """split(k, num) of every key of keys [n, 2] -> uint32[n, num, 2]."""
@@ -132,7 +106,14 @@ def split_each(keys, num: int = 2) -> np.ndarray:
     return np.stack([b1, b2], axis=-1)
 
 
+def split(key, num: int = 2) -> np.ndarray:
+    """jax.random.split(key, num) -> uint32[num, 2]."""
+    return split_each(_key(key)[None], num)[0]
+
+
 def _bits_each(keys, shape) -> np.ndarray:
+    """32 random bits per element and key: the xor of the hash's two
+    words -> uint32[n, *shape]."""
     keys = np.asarray(keys, _U32)
     shape = tuple(shape)
     expand = (len(keys),) + (1,) * len(shape)
@@ -145,15 +126,31 @@ def _bits_each(keys, shape) -> np.ndarray:
     return np.asarray(b1 ^ b2, _U32)
 
 
+def random_bits(key, shape=()) -> np.ndarray:
+    """32 random bits per element: the xor of the hash's two words."""
+    return _bits_each(_key(key)[None], shape)[0, ...]
+
+
 def uniform_each(keys, shape=(), minval=0.0, maxval=1.0) -> np.ndarray:
     """uniform(k, shape, minval, maxval) of every key -> [n, *shape]."""
     return _uniform_bits(_bits_each(keys, shape), minval, maxval)
 
 
+def uniform(key, shape=(), minval=0.0, maxval=1.0) -> np.ndarray:
+    """jax.random.uniform(key, shape, float32, minval, maxval)."""
+    return uniform_each(_key(key)[None], shape, minval, maxval)[0, ...]
+
+
 def normal_each(keys, shape=()) -> np.ndarray:
-    """normal(k, shape) of every key -> [n, *shape]."""
+    """normal(k, shape) of every key -> [n, *shape]: sqrt(2) *
+    erfinv(uniform(nextafter(-1, 0), 1))."""
     u = uniform_each(keys, shape, np.nextafter(_F32(-1.0), _F32(0.0)), 1.0)
     return (_F32(np.sqrt(2)) * erfinv_f32(u)).astype(_F32)
+
+
+def normal(key, shape=()) -> np.ndarray:
+    """jax.random.normal(key, shape) in float32."""
+    return normal_each(_key(key)[None], shape)[0, ...]
 
 
 # XLA's ErfInv for float32 (M. Giles, "Approximating the erfinv function"),
@@ -230,13 +227,6 @@ def erfinv_f32(x) -> np.ndarray:
             p = _fma(p, w, np.where(lt, _F32(c_lt), _F32(c_ge)))
         p = np.where(np.abs(x) == _F32(1.0), _F32(np.inf), p)
         return np.asarray(x * p, _F32)
-
-
-def normal(key, shape=()) -> np.ndarray:
-    """jax.random.normal(key, shape) in float32."""
-    lo = np.nextafter(_F32(-1.0), _F32(0.0))
-    u = uniform(key, shape, lo, 1.0)
-    return (_F32(np.sqrt(2)) * erfinv_f32(u)).astype(_F32)
 
 
 def randint(key, shape, minval: int, maxval: int) -> np.ndarray:

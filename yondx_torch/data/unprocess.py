@@ -99,27 +99,54 @@ def _inv3(a):
     return np.asarray(x, _F32)
 
 
+def _ccms(keys):
+    """rgb2cam [n,3,3] float32 for each ccm key of keys [n,2]."""
+    w = rng.uniform_each(keys, (4, 1, 1), 1e-8, 1e8)
+    terms = XYZ2CAMS * w
+    num = ((terms[:, 0] + terms[:, 1]) + terms[:, 2]) + terms[:, 3]
+    den = ((w[:, 0] + w[:, 1]) + w[:, 2]) + w[:, 3]
+    rgb2cam = _dot3((num / den).astype(_F32), RGB2XYZ.T)
+    return (rgb2cam / _sum3(rgb2cam)[..., None]).astype(_F32)
+
+
+def _gains(keys):
+    """(rgb_gain, red, blue) [n,3] float32 for each gain key of keys
+    [n,2]."""
+    kg = rng.split_each(keys, 4)                   # [n, 4, 2]
+    nrm = (_F32(0.8) + (_F32(0.1) * rng.normal_each(kg[:, 0])
+                        ).astype(_F32)).astype(_F32)
+    dark = rng.uniform_each(kg[:, 1]) >= _F32(0.9)
+    rgb_gain = np.where(dark, _F32(0.2) / nrm, _F32(1.0) / nrm)
+    red = rng.uniform_each(kg[:, 2], (), 1.4, 2.5)
+    blue = rng.uniform_each(kg[:, 3], (), 1.5, 2.4)
+    return np.stack([rgb_gain, red, blue], axis=1).astype(_F32)
+
+
+def _cameras(keys):
+    """Each crop's camera from its key of keys [n,2], as the JAX package
+    draws it (split into a ccm and a gain key): rgb2cam [n,3,3], cam2rgb
+    [n,3,3] (its LAPACK inverse) and (rgb_gain, red, blue) [n,3]."""
+    k = rng.split_each(keys)                       # [n, (ccm, gain), 2]
+    rgb2cam = _ccms(k[:, 0])
+    cam2rgb = np.stack([_inv3(m) for m in rgb2cam])
+    return rgb2cam, cam2rgb, _gains(k[:, 1])
+
+
+def _wb(gains):
+    """[n,3] (rgb_gain, red, blue) -> white balance [n,3] (red, 1, blue)."""
+    return np.stack([gains[:, 1], np.ones(len(gains), _F32), gains[:, 2]],
+                    axis=1)
+
+
 def random_ccm(key):
     """-> (rgb2cam [3,3], cam2rgb [3,3]) float32 numpy."""
-    w = rng.uniform(key, (4, 1, 1), 1e-8, 1e8)
-    terms = XYZ2CAMS * w
-    num = ((terms[0] + terms[1]) + terms[2]) + terms[3]
-    den = ((w[0] + w[1]) + w[2]) + w[3]
-    xyz2cam = (num / den).astype(_F32)
-    rgb2cam = _dot3(xyz2cam, RGB2XYZ.T)
-    rgb2cam = (rgb2cam / _sum3(rgb2cam)[:, None]).astype(_F32)
+    rgb2cam = _ccms(np.asarray(key, np.uint32)[None])[0]
     return rgb2cam, _inv3(rgb2cam)
 
 
 def random_gains(key):
-    """-> (rgb_gain, red_gain, blue_gain) float32 scalars."""
-    k1, k2, k3, k4 = rng.split(key, 4)
-    n = _F32(_F32(0.8) + _F32(_F32(0.1) * rng.normal(k1)))
-    dark = rng.uniform(k2) >= _F32(0.9)
-    rgb_gain = _F32(0.2) / n if dark else _F32(1.0) / n
-    red = rng.uniform(k3, (), 1.4, 2.5)
-    blue = rng.uniform(k4, (), 1.5, 2.4)
-    return _F32(rgb_gain), _F32(red), _F32(blue)
+    """-> (rgb_gain, red, blue) float32 scalars."""
+    return tuple(_gains(np.asarray(key, np.uint32)[None])[0])
 
 
 # The image arithmetic below is float32 numpy in the JAX package's order;
@@ -186,18 +213,16 @@ def mosaic(img):
     return torch.from_numpy(_mosaic(_arr(img)))
 
 
-def _unprocess_one(key, img, batch_of_one: bool = False):
-    """One sRGB [H,W,3] float32 array -> (raw rggb [H/2,W/2,4], wb [3],
-    cam2rgb [3,3]) float32 arrays."""
-    k_ccm, k_gain = rng.split(key)
-    rgb2cam, cam2rgb = random_ccm(k_ccm)
-    rgb_gain, red, blue = random_gains(k_gain)
+def _unprocess_one(img, rgb2cam, gains, batch_of_one: bool = False):
+    """One sRGB [H,W,3] float32 array through its camera -> raw rggb
+    [H/2,W/2,4] float32."""
+    rgb_gain, red, blue = gains
     x = _inverse_smoothstep(img)
     x = _gamma_expansion(x)
     x = _dot3(x, rgb2cam, batch_of_one)
     x = _safe_invert_gains(x, rgb_gain, red, blue)
     x = np.clip(x, _F32(0.0), _F32(1.0))
-    return _mosaic(x), np.array([red, 1.0, blue], _F32), cam2rgb
+    return _mosaic(x)
 
 
 def unprocess_batch(key, imgs):
@@ -205,11 +230,10 @@ def unprocess_batch(key, imgs):
     wb [B,3], cam2rgb [B,3,3]) float32 CPU tensors. One random camera
     per sample, from split(key, B)."""
     imgs = _arr(imgs)
-    keys = rng.split(key, imgs.shape[0])
-    outs = [_unprocess_one(k, im, len(imgs) == 1)
-            for k, im in zip(keys, imgs)]
-    return tuple(torch.from_numpy(np.stack([o[i] for o in outs]))
-                 for i in range(3))
+    rgb2cam, cam2rgb, gains = _cameras(rng.split(key, imgs.shape[0]))
+    raw = np.stack([_unprocess_one(im, m, g, len(imgs) == 1)
+                    for im, m, g in zip(imgs, rgb2cam, gains)])
+    return tuple(torch.from_numpy(a) for a in (raw, _wb(gains), cam2rgb))
 
 
 def srgb_to_pseudo_raw(key, imgs, bayer_aug_enabled: bool = True):
@@ -240,31 +264,6 @@ def srgb_to_pseudo_raw(key, imgs, bayer_aug_enabled: bool = True):
 # not libm's bit for bit). The host chain above stays the bit-exact one
 # for the held-out scenes.
 
-def _cameras(key, n: int):
-    """The per-crop draws of unprocess_batch for n crops at once:
-    rgb2cam [n,3,3] and (rgb_gain, red, blue) [n,3] as random_ccm and
-    random_gains give them crop by crop (bit for bit), and cam2rgb
-    [n,3,3], the inverse in float64 rounded to float32 (the sample dump's
-    only use; within 1e-6 of the LAPACK float32 inverse)."""
-    k = rng.split_each(rng.split(key, n))          # [n, (ccm, gain), 2]
-    w = rng.uniform_each(k[:, 0], (4, 1, 1), 1e-8, 1e8)
-    terms = XYZ2CAMS * w
-    num = ((terms[:, 0] + terms[:, 1]) + terms[:, 2]) + terms[:, 3]
-    den = ((w[:, 0] + w[:, 1]) + w[:, 2]) + w[:, 3]
-    rgb2cam = _dot3((num / den).astype(_F32), RGB2XYZ.T)
-    rgb2cam = (rgb2cam / _sum3(rgb2cam)[..., None]).astype(_F32)
-    cam2rgb = np.linalg.inv(rgb2cam.astype(np.float64)).astype(_F32)
-    kg = rng.split_each(k[:, 1], 4)                # [n, 4, 2]
-    nrm = (_F32(0.8) + (_F32(0.1) * rng.normal_each(kg[:, 0])
-                        ).astype(_F32)).astype(_F32)
-    dark = rng.uniform_each(kg[:, 1]) >= _F32(0.9)
-    rgb_gain = np.where(dark, _F32(0.2) / nrm, _F32(1.0) / nrm)
-    red = rng.uniform_each(kg[:, 2], (), 1.4, 2.5)
-    blue = rng.uniform_each(kg[:, 3], (), 1.5, 2.4)
-    gains = np.stack([rgb_gain, red, blue], axis=1).astype(_F32)
-    return rgb2cam, cam2rgb, gains
-
-
 def srgb_to_pseudo_raw_device(key, imgs, bayer_aug_enabled: bool = True):
     """The training-data transform minus the noise, on the device of
     `imgs` (a float [B,H,W,3] tensor in [0,1]): inverse smoothstep, gamma
@@ -279,10 +278,8 @@ def srgb_to_pseudo_raw_device(key, imgs, bayer_aug_enabled: bool = True):
     dev = imgs.device
     B = imgs.shape[0]
     k_un, k_pat = rng.split(key)
-    rgb2cam, cam2rgb, g = _cameras(k_un, B)
-    rgb_gain, red, blue = g[:, 0], g[:, 1], g[:, 2]
-    inv = np.stack([_F32(1.0) / red, np.ones(B, _F32), _F32(1.0) / blue],
-                   axis=1) / rgb_gain[:, None]
+    rgb2cam, cam2rgb, g = _cameras(rng.split(k_un, B))
+    inv = (_F32(1.0) / _wb(g)) / g[:, :1]
     m = torch.from_numpy(rgb2cam).to(dev)
     gains = torch.from_numpy(inv.astype(_F32)).to(dev)[:, None, None, :]
     x = torch.clamp(imgs, 0.0, 1.0)
@@ -304,7 +301,6 @@ def srgb_to_pseudo_raw_device(key, imgs, bayer_aug_enabled: bool = True):
         raw = bayer_aug(raw, 3)
     else:
         pattern = np.zeros((B,), np.int32)
-    wb = np.stack([red, np.ones(B, _F32), blue], axis=1)
-    return (raw, torch.from_numpy(wb).to(dev),
+    return (raw, torch.from_numpy(_wb(g)).to(dev),
             torch.from_numpy(cam2rgb).to(dev),
             torch.from_numpy(pattern).to(dev))
