@@ -20,11 +20,20 @@ suite's 39 scenes, built once on the host, through the s2dt16 and gru32
 nets in fp32 (each held to its committed artifact in docs/heldout/), the
 s2dt16 net in bf16 (printed beside), the gru32 net with the PGE
 estimator on suite v1, and the engine on the card against the CPU on
-two reduced scenes. Every phase prints one line with its elapsed
-seconds; any failure raises (exit code != 0). The last two lines are the
-kernels' JSON record and the device JSON record. With --out, each
-held-out column's eval_synth JSON is written into DIR. Imports nothing
-of JAX or of the JAX package.
+two reduced scenes. Phase 10 trains the gru32 SNR-Net (trainer_awgn's
+AWGNTrainer): one step card vs CPU, the full-width
+GRU_5to50_norm_mix.yml run, the eval anchor, a resumed distillation
+run. Phase 11 trains the noise-estimation nets (train_est's
+PGEstTrainer): one step of each flavour card vs CPU, K1 at k = 19
+against its plain version and its bound, the EstPGE.yml recipe at full
+width, 20 steps of the EstUnet map flavour (K1 once a step), the PGE
+eval loss of the committed and the new estimator, a resume of the
+committed estimator, and the new estimator served through
+`eval_synth --heldout --suite v1 --est pge`. Every phase prints one
+line with its elapsed seconds; any failure raises (exit code != 0). The
+last two lines are the kernels' JSON record and the device JSON record.
+With --out, each held-out column's eval_synth JSON is written into DIR.
+Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -439,9 +448,10 @@ def heldout_card_vs_cpu():
                                  "cpu")
 
 
-def heldout_gate(out_dir=None) -> dict:
+def heldout_gate(out_dir=None):
     """Phase 9: the frozen held-out gate on the card (see the module
-    docstring); returns K1's launches per column."""
+    docstring); returns K1's launches per column, the scenes and column
+    (d)'s mean PSNR."""
     from yondx_torch.eval import heldout
     from yondx_torch.eval.metrics import psnr as t_psnr
     if out_dir:
@@ -502,7 +512,7 @@ def heldout_gate(out_dir=None) -> dict:
                              f"(K, sigma): {outs.tolist()}")
     # (e) the engine on the card against the CPU
     heldout_card_vs_cpu()
-    return launches
+    return launches, scenes, rows_pge["_summary"]["mean_psnr"]
 
 
 TRAIN_RUNFILE = "runfiles/Gaussian/GRU_5to50_norm_mix.yml"
@@ -533,8 +543,8 @@ def train_step_card_vs_cpu(tmp) -> None:
     px, card against CPU, "jax" fields on both, TF32 off and cuDNN
     deterministic. Tolerances: loss rtol 1e-4; gradients and both Adam
     moments within 1e-3 of each tensor's max; parameters within the move
-    Adam's first step can make for the tensor's gradient error (below),
-    and at most 1% of the entries apart by more than 3e-7."""
+    Adam's first step can make for the tensor's gradient error (see
+    hold_step), and at most 1% of the entries apart by more than 3e-7."""
     from yondx_torch.data.datasets import SyntheticSRGBDataset
     from yondx_torch.io.ckpt import load_checkpoint
     from yondx_torch.train import AWGNTrainer
@@ -553,48 +563,12 @@ def train_step_card_vs_cpu(tmp) -> None:
         tr = AWGNTrainer(args, device=d, field="jax")
         tr.load_params(params)
         loss, m, _ = tr.train_step(batch, next(train_keys(1997)), lr)
-        st = tr.optimizer.state
-        out[d] = {"loss": float(loss), "psnr": float(m), "p": {}, "g": {},
-                  "mu": {}, "nu": {}}
-        for n, p in tr.model.named_parameters():
-            out[d]["p"][n] = p.detach().cpu().numpy()
-            out[d]["g"][n] = p.grad.detach().cpu().numpy()
-            out[d]["mu"][n] = st[p]["exp_avg"].cpu().numpy()
-            out[d]["nu"][n] = st[p]["exp_avg_sq"].cpu().numpy()
+        out[d] = dict(step_record(tr, loss), psnr=float(m))
     torch.backends.cudnn.deterministic = False
-    c, g = out["cpu"], out["cuda"]
-    worst = {}
-    for key in ("g", "mu", "nu"):
-        worst[key] = max(float(np.abs(g[key][n] - c[key][n]).max())
-                         / max(float(np.abs(c[key][n]).max()), 1e-30)
-                         for n in c[key])
-    # Adam's first step lr * g / (|g| + eps) moves apart by at most
-    # lr eps e / (|g| - e + eps)^2 for a gradient error e while |g| > 2e
-    # (doubled here), by 2 lr where |g| <= 2e; 3e-7 for rounding
-    moved = total = over = 0
-    for n in c["p"]:
-        e = np.abs(g["g"][n] - c["g"][n]).max()
-        a = np.abs(c["g"][n])
-        bound = np.where(a > 2 * e, 2 * lr * 1e-8 * e / (a - e + 1e-8) ** 2,
-                         2 * lr) + 3e-7
-        d = np.abs(g["p"][n] - c["p"][n])
-        over += int((d > bound).sum())
-        moved += int((d > 3e-7).sum())
-        total += d.size
-    say("train (a) cuda vs cpu", f"gru32 5to50, 4 crops of 64 px, lr {lr}: "
-        f"loss {g['loss']:.7f} / {c['loss']:.7f}, PSNR {g['psnr']:.4f} / "
-        f"{c['psnr']:.4f} dB; worst error over each tensor's max: grad "
-        f"{worst['g']:.2e}, mu {worst['mu']:.2e}, nu {worst['nu']:.2e}; "
-        f"params: {over} entries beyond Adam's bound for their gradient "
-        f"error, {moved} of {total} apart by > 3e-7")
-    if abs(g["loss"] - c["loss"]) > 1e-4 * abs(c["loss"]):
-        raise AssertionError("train step: loss differs between card and CPU")
-    if max(worst.values()) > 1e-3:
-        raise AssertionError(f"train step: gradients or moments differ "
-                             f"{worst}")
-    if over or moved > 0.01 * total:
-        raise AssertionError(f"train step: parameters differ ({over} over "
-                             f"the bound, {moved} of {total} moved)")
+    hold_step("train (a) cuda vs cpu", f"gru32 5to50, 4 crops of 64 px, lr "
+              f"{lr}, PSNR {out['cuda']['psnr']:.4f} / "
+              f"{out['cpu']['psnr']:.4f} dB", out, lr, loss_rtol=1e-4,
+              max_frac=1e-3)
 
 
 def train_full_width(tmp, fp32_peak, peak_key) -> None:
@@ -724,24 +698,12 @@ def train_distill_resume(tmp) -> None:
     inner = load_checkpoint(os.path.join(
         args["fast_ckpt"], "Gaussian_GRUS2DT_mix_1to50c_norm_last_model.ckpt"),
         opt_state=True)["opt_state"]["inner_state"]["0"]
-    pmap = dict(tr.model.named_parameters())
     held = {("conv1", "conv1", "kernel"): lambda a: a.transpose(3, 2, 0, 1),
             ("conv1", "guide", "gamma_out", "kernel"): lambda a: a.T,
             ("upv5", "deconv", "kernel"):
                 lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1),
             ("conv1", "conv1", "bias"): lambda a: a}
-    for path, layout in held.items():
-        name = ".".join(path[:-1] + ("weight" if path[-1] == "kernel"
-                                     else path[-1],))
-        st = tr.optimizer.state[pmap[name]]
-        for moment, mine in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            leaf = inner[moment]["params"]
-            for k in path:
-                leaf = leaf[k]
-            if not np.array_equal(layout(np.asarray(leaf)),
-                                  st[mine].cpu().numpy()):
-                raise AssertionError(f"distill resume: {mine} of {name} is "
-                                     f"not the file's {moment}")
+    hold_loaded_moments("distill resume", tr, inner, held)
     tr.train(steps_per_epoch=2)
     counts = {int(st["step"]) for st in tr.optimizer.state.values()}
     losses = [s["loss"] for s in tr.steps]
@@ -771,6 +733,388 @@ def train_phase(fp32_peak, peak_key) -> None:
             train_distill_resume(os.path.join(tmp, "d"))
         finally:
             os.chdir(REPO)
+
+
+EST_RUNFILE = "runfiles/Gaussian/EstPGE.yml"
+EST_CKPT = os.path.join(CKPTS, "EstPGE_d3nf16_last_model.ckpt")
+EST_MAP_ARCH = {"name": "EstUnet", "in_nc": 12, "out_nc": 4, "pge": False}
+# the 'pge' loss of the committed EstPGE_d3nf16 on the fixed eval set
+# (yondx_torch.train.pg_trainer.pge_eval_batches: 64 synthetic crops of
+# 256 px, keys from PRNGKey(2024), JAX's fields) computed by the JAX
+# package on the CPU: tests/test_torch_pg_train.py
+# ::test_eval_pge_anchor_of_chip_smoke recomputes it
+EST_EVAL_JAX = 0.3170408383011818
+
+
+def _est_args(tmp, **hyper):
+    """EstPGE.yml with its checkpoints written under `tmp`."""
+    from yondx_torch.config import load_runfile
+    args = load_runfile(os.path.join(REPO, EST_RUNFILE), mode="train")
+    args["fast_ckpt"] = os.path.join(tmp, "ckpt")
+    args["hyper"].update(hyper)
+    return args
+
+
+def hold_step(phase, label, out, lr, loss_rtol, max_frac) -> None:
+    """Card against CPU after one Adam step from the same weights and
+    inputs, out = {device: {loss, p, g, mu, nu}}: loss within loss_rtol;
+    gradients and both moments within max_frac of each tensor's max;
+    weights within the move Adam's first step lr g / (|g| + eps) can
+    make for the tensor's gradient error e, lr eps e / (|g| - e + eps)^2
+    while |g| > 2e (doubled here) and 2 lr where |g| <= 2e, plus 3e-7
+    for rounding; at most 1% of the entries apart by more than 3e-7."""
+    c, g = out["cpu"], out["cuda"]
+    rel = {key: {n: float(np.abs(g[key][n] - c[key][n]).max())
+                 / max(float(np.abs(c[key][n]).max()), 1e-30)
+                 for n in c[key]} for key in ("g", "mu", "nu")}
+    worst = {key: max(r.values()) for key, r in rel.items()}
+    where = max(rel["g"], key=rel["g"].get)
+    moved = total = over = 0
+    for n in c["p"]:
+        e = np.abs(g["g"][n] - c["g"][n]).max()
+        a = np.abs(c["g"][n])
+        bound = np.where(a > 2 * e, 2 * lr * 1e-8 * e / (a - e + 1e-8) ** 2,
+                         2 * lr) + 3e-7
+        d = np.abs(g["p"][n] - c["p"][n])
+        over += int((d > bound).sum())
+        moved += int((d > 3e-7).sum())
+        total += d.size
+    say(phase, f"{label}: loss {g['loss']:.7f} / {c['loss']:.7f}; worst "
+        f"error over each tensor's max: grad {worst['g']:.2e} (at {where}), "
+        f"mu {worst['mu']:.2e}, nu {worst['nu']:.2e}; params: {over} "
+        f"entries beyond Adam's bound for their gradient error, {moved} of "
+        f"{total} apart by > 3e-7")
+    if abs(g["loss"] - c["loss"]) > loss_rtol * abs(c["loss"]):
+        raise AssertionError(f"{phase} {label}: loss differs")
+    if max(worst.values()) > max_frac:
+        raise AssertionError(f"{phase} {label}: gradients or moments "
+                             f"differ {worst}")
+    if over or moved > 0.01 * total:
+        raise AssertionError(f"{phase} {label}: parameters differ ({over} "
+                             f"over the bound, {moved} of {total} moved)")
+
+
+def step_record(tr, loss) -> dict:
+    """A trainer's state after one step, for hold_step (numpy)."""
+    st = tr.optimizer.state
+    rec = {"loss": float(loss), "p": {}, "g": {}, "mu": {}, "nu": {}}
+    for n, p in tr.model.named_parameters():
+        rec["p"][n] = p.detach().cpu().numpy()
+        rec["g"][n] = p.grad.detach().cpu().numpy()
+        rec["mu"][n] = st[p]["exp_avg"].cpu().numpy()
+        rec["nu"][n] = st[p]["exp_avg_sq"].cpu().numpy()
+    return rec
+
+
+def hold_loaded_moments(label, tr, inner, held) -> None:
+    """The Adam moments a trainer loaded from a checkpoint, against the
+    file's optax mu and nu (`inner`) on the flax paths of `held`, each
+    laid out here by hand into torch's layout."""
+    pmap = dict(tr.model.named_parameters())
+    for path, layout in held.items():
+        name = ".".join(path[:-1] + ("weight" if path[-1] == "kernel"
+                                     else path[-1],))
+        st = tr.optimizer.state[pmap[name]]
+        for moment, mine in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            leaf = inner[moment]["params"]
+            for k in path:
+                leaf = leaf[k]
+            if not np.array_equal(layout(np.asarray(leaf)),
+                                  st[mine].cpu().numpy()):
+                raise AssertionError(f"{label}: {mine} of {name} is not "
+                                     f"the file's {moment}")
+
+
+def est_step_card_vs_cpu(tmp) -> None:
+    """(a) One step of each flavour card against CPU from the same fresh
+    weights (flax's default init) and the same inputs: one "jax"-field
+    batch of 4 crops of 64 px built on the CPU (its EstUnet features by
+    the plain box moments; K1 is held in (b)); TF32 off, cuDNN
+    deterministic. est_UNet at EstPGE.yml's widths, EstUnet at its
+    default widths (nf 64, depth 3) with in_nc 12, out_nc 4."""
+    from yondx_torch.core import rng
+    from yondx_torch.data.datasets import SyntheticSRGBDataset, to_unit
+    from yondx_torch.train.pg_trainer import PGEstTrainer
+    torch.backends.cudnn.deterministic = True
+    ds = SyntheticSRGBDataset(length=4, size=64, seed=1997, cache=False)
+    x = to_unit(np.stack([ds[i] for i in range(4)]), "cpu")
+    key = next(rng.rng_seq(0))
+    lr = 1e-3
+    for label, arch in (("est_UNet d3nf16", None),
+                        ("EstUnet nf64 in12", EST_MAP_ARCH)):
+        args = _est_args(tmp)
+        if arch:
+            args["arch"] = dict(arch)
+        out, inputs = {}, None
+        for d in ("cpu", "cuda"):
+            tr = PGEstTrainer(args, device=d, field="jax")
+            if inputs is None:
+                inputs = tr.inputs(x, key)
+            out[d] = step_record(tr, tr.step(
+                {k: v.to(tr.device) for k, v in inputs.items()}, lr))
+        # gradients and moments: 1e-4 of each tensor's max (phase 10a
+        # holds 1e-3); fp32 sums in cuDNN's and the CPU's orders put
+        # EstUnet nf64's down1_1 bias gradient at 2.3e-5
+        hold_step("est (a) cuda vs cpu", label, out, lr, loss_rtol=1e-5,
+                  max_frac=1e-4)
+    torch.backends.cudnn.deterministic = False
+
+
+def est_k1_k19(bw, fp32) -> dict:
+    """(b) K1 at the map flavour's k = 19, mean and var (texture off), on
+    one stack [32,128,128,4] and on the stacked [lr; hr] [64,128,128,4]
+    the step launches, against its plain version (phase 3's tolerances:
+    mean 1e-5, var 1e-6) and timed against its bound (one read and two
+    map writes), cold L2."""
+    from yondx_torch.nle import moments
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rec = {}
+    for B in (32, 64):
+        x = torch.rand((B, 128, 128, 4), generator=g, device=dev)
+        got = moments.nle_moments(x, 19, 19, texture=False)
+        torch.cuda.synchronize()
+        ref = moments.nle_moments_plain(x, 19, 19, texture=False)
+        errs = {key: float((gv - rv).abs().max()) for key, gv, rv in
+                zip(("mean", "var"), got[:2], ref[:2])}
+        if got[2] is not None or errs["mean"] > 1e-5 or errs["var"] > 1e-6:
+            raise AssertionError(f"K1 k=19 [{B},128,128,4]: {errs}")
+        ms = cuda_ms(lambda: moments.nle_moments(x, 19, 19, texture=False),
+                     20, scratch.zero_)
+        plain = cuda_ms(lambda: moments.nle_moments_plain(
+            x, 19, 19, texture=False), 10, scratch.zero_)
+        n = x.numel()
+        t_bytes = 3 * 4 * n / bw * 1e3
+        t_ops = n * K1_FLAVOURS["collab_dn"][2] / fp32 * 1e3
+        bound = max(t_bytes, t_ops)
+        say("est (b) K1 k=19", f"[{B},128,128,4] mean, var: max abs err "
+            f"mean {errs['mean']:.3e}, var {errs['var']:.3e}; {ms:.4f} ms, "
+            f"bound {bound:.4f} ms by "
+            f"{'bytes' if t_bytes >= t_ops else 'operations'} "
+            f"({3 * 4 * n / 1e6:.1f} MB), {ms / bound:.1f}x; plain "
+            f"{plain:.4f} ms")
+        rec[f"{B}x128x128x4"] = {"ms": ms, "plain_ms": plain,
+                                 "bound_ms": bound, "max_abs_err": errs,
+                                 "bound_by": "bytes" if t_bytes >= t_ops
+                                 else "operations"}
+    return rec
+
+
+def est_pge_recipe(tmp):
+    """(c) EstPGE.yml as written (est_UNet nf 16, depth 3, batch 32,
+    patch 256 -> [32,128,128,4], WarmupCosine at 1e-3, 1024 synthetic
+    crops, "torch" fields), fresh weights equal to JAX's, checkpoints
+    under `tmp`; all 80 epochs unless a timed pilot says they would take
+    over 90 s, then the largest multiple of save_freq that fits."""
+    from yondx_torch.core import rng
+    from yondx_torch.data.datasets import SyntheticSRGBDataset
+    from yondx_torch.nle import moments
+    from yondx_torch.train.pg_trainer import PGEstTrainer
+    args = _est_args(tmp)
+    dst, bs = args["dst_train"], args["hyper"]["batch_size"]
+    t = time.perf_counter()
+    ds = SyntheticSRGBDataset(length=dst["synthetic_len"],
+                              size=dst["patch_size"], seed=1997)
+    say("est (c)", f"built the synthetic set ({len(ds)} crops of "
+        f"{ds.size} px) through the disk cache in "
+        f"{time.perf_counter() - t:.2f} s")
+    pilot = PGEstTrainer(args, device="cuda", field="torch")
+    batch = np.stack([ds[i] for i in range(bs)])
+    keys = rng.rng_seq(1)
+    times = []
+    for _ in range(12):
+        t = time.perf_counter()
+        float(pilot.train_step(batch, next(keys), 1e-3))
+        times.append(time.perf_counter() - t)
+    pilot_s = float(np.median(times[2:]))
+    del pilot
+    epochs = args["hyper"]["stop_epoch"]
+    per_epoch = len(ds) // bs
+    if epochs * per_epoch * pilot_s > 90:
+        freq = args["hyper"]["save_freq"]
+        epochs = max(freq, int(90 / (per_epoch * pilot_s)) // freq * freq)
+    say("est (c)", f"pilot {pilot_s * 1e3:.2f} ms/step: running {epochs} of "
+        f"{args['hyper']['stop_epoch']} epochs ({epochs * per_epoch} steps)"
+        + ("" if epochs == args["hyper"]["stop_epoch"] else
+           " -- CUT to fit about 90 s"))
+    tr = PGEstTrainer(args, device="cuda", field="torch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    moments.reset_launches()
+    t = time.perf_counter()
+    tr.train(epochs=epochs)
+    wall = time.perf_counter() - t
+    launches = moments.LAUNCHES["nle_moments"]
+    peak_mem = torch.cuda.max_memory_allocated()
+    steps = tr.steps
+    losses = np.array([s["loss"] for s in steps])
+    if len(steps) != epochs * per_epoch or not np.isfinite(losses).all():
+        raise AssertionError(f"est (c): {len(steps)} steps, finite "
+                             f"{np.isfinite(losses).all()}")
+    timed = steps[per_epoch:] or steps[2:]
+    step_s = float(np.median([s["step_s"] for s in timed]))
+    load_s = sum(s["loader_s"] for s in timed)
+    share = load_s / (load_s + sum(s["step_s"] for s in timed))
+    say("est (c)", f"est_UNet d3nf16, batch {bs} x [{ds.size // 2},"
+        f"{ds.size // 2},4], fp32 (TF32 off): {step_s * 1e3:.2f} ms/step "
+        f"(median of steps {len(steps) - len(timed) + 1}-{len(steps)}, each "
+        f"ending in the loss read), {bs / step_s:.1f} samples/s; peak memory "
+        f"{peak_mem / 2 ** 30:.2f} GiB; loader share {100 * share:.2f}%; "
+        f"{wall:.2f} s for {epochs} epochs; K1 launches {launches} (the "
+        "pge flavour runs no box moments)")
+    per = {e: float(np.mean([s["loss"] for s in steps if s["epoch"] == e]))
+           for e in range(1, epochs + 1)}
+    say("est (c)", "mean loss of epochs " + ", ".join(
+        f"{e}: {per[e]:.5f}" for e in (1, *range(10, epochs + 1, 10))))
+    last = os.path.join(args["fast_ckpt"], "EstPGE_d3nf16_last_model.ckpt")
+    if launches or not os.path.exists(last):
+        raise AssertionError("est (c): K1 ran, or no last checkpoint")
+    profile_run("est (c) profile", lambda: float(tr.train_step(
+        batch, next(rng.rng_seq(5)), 0.0)))
+    return tr, last, epochs
+
+
+def est_map_flavour() -> dict:
+    """(d) The map flavour at EstUnet's default widths (nf 64, depth 3,
+    in_nc 12, out_nc 4), batch 32, patch 256, 20 steps, "torch" fields:
+    ms/step and K1's launches (one a step, on the stacked [lr; hr])."""
+    from yondx_torch.models.registry import param_count
+    from yondx_torch.nle import moments
+    from yondx_torch.train.pg_trainer import PGEstTrainer
+    with tempfile.TemporaryDirectory() as tmp:
+        args = _est_args(tmp, stop_epoch=1, save_freq=1)
+        args["arch"] = dict(EST_MAP_ARCH)
+        tr = PGEstTrainer(args, device="cuda", field="torch")
+        torch.cuda.synchronize()
+        moments.reset_launches()
+        tr.train(epochs=1, steps_per_epoch=20)
+        launches = moments.LAUNCHES["nle_moments"]
+    steps = tr.steps
+    losses = [s["loss"] for s in steps]
+    step_s = float(np.median([s["step_s"] for s in steps[2:]]))
+    bs, size = args["hyper"]["batch_size"], args["dst_train"]["patch_size"]
+    say("est (d)", f"EstUnet nf64 d3 in12 ({param_count(tr.model)} "
+        f"parameters), batch {bs} x [{size // 2},{size // 2},4]: "
+        f"{step_s * 1e3:.2f} ms/step "
+        f"(median of steps 3-{len(steps)}); K1 launches {launches} in "
+        f"{len(steps)} steps; losses {losses[0]:.5f} ... {losses[-1]:.5f}")
+    if len(steps) != 20 or not np.all(np.isfinite(losses)):
+        raise AssertionError("est (d): steps or losses wrong")
+    if launches != len(steps):
+        raise AssertionError(f"est (d): K1 launched {launches} times in "
+                             f"{len(steps)} steps, expected one a step")
+    return {"launches": launches, "steps": len(steps),
+            "shape": [2 * bs, size // 2, size // 2, 4],
+            "step_ms": step_s * 1e3}
+
+
+def est_quality(tr) -> None:
+    """(e) The 'pge' loss on the fixed eval set (64 crops, JAX's fields):
+    the committed EstPGE_d3nf16 within 1e-4 of EST_EVAL_JAX; the net of
+    (c) at most 1.25x the committed net's value."""
+    from yondx_torch.models.unets import load_model
+    from yondx_torch.train.pg_trainer import eval_pge, pge_eval_batches
+    t = time.perf_counter()
+    batches = pge_eval_batches("cuda")
+    say("est (e)", f"built the eval set (64 crops, JAX's fields on the "
+        f"host) in {time.perf_counter() - t:.2f} s")
+    committed = eval_pge(load_model(tr.arch, EST_CKPT, device="cuda"),
+                         batches)
+    mine = eval_pge(tr.model, batches)
+    say("est (e)", f"eval loss: committed EstPGE_d3nf16 {committed:.6f} "
+        f"(JAX CPU {EST_EVAL_JAX:.6f}, diff {committed - EST_EVAL_JAX:+.2e});"
+        f" the net trained in (c) {mine:.6f} ({mine / committed:.3f}x)")
+    if abs(committed - EST_EVAL_JAX) > 1e-4:
+        raise AssertionError("est (e): the committed estimator's eval loss "
+                             "is not within 1e-4 of JAX's")
+    if not mine <= 1.25 * committed:
+        raise AssertionError(f"est (e): trained net {mine:.6f} > 1.25 x "
+                             f"{committed:.6f}")
+
+
+def est_resume(tmp) -> None:
+    """(f) The committed EstPGE_d3nf16 checkpoint (epoch 80, optax Adam
+    state) resumed with last_epoch -1 and stop_epoch 81, two steps: the
+    schedule gives lr 0 at epoch 81, so the steps move no weight; the
+    Adam count goes to the file's + 2, and before the steps the loaded
+    moments of a conv kernel, a deconv kernel and a bias equal the
+    file's (laid out here by hand)."""
+    import shutil
+    from yondx_torch.io.ckpt import load_checkpoint
+    from yondx_torch.train.pg_trainer import PGEstTrainer
+    args = _est_args(tmp, last_epoch=-1, stop_epoch=81)
+    os.makedirs(args["fast_ckpt"])
+    shutil.copy(EST_CKPT, args["fast_ckpt"])
+    inner = load_checkpoint(EST_CKPT, opt_state=True)[
+        "opt_state"]["inner_state"]["0"]
+    count = int(inner["count"])
+    tr = PGEstTrainer(args, device="cuda", field="torch")
+    counts = {int(st["step"]) for st in tr.optimizer.state.values()}
+    if tr.epoch != 80 or counts != {count}:
+        raise AssertionError(f"est resume: epoch {tr.epoch}, counts "
+                             f"{counts}, expected 80 and {count}")
+    held = {("down0_1", "kernel"): lambda a: a.transpose(3, 2, 0, 1),
+            ("up0_deconv", "deconv", "kernel"):
+                lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1),
+            ("conv_final", "bias"): lambda a: a}
+    hold_loaded_moments("est resume", tr, inner, held)
+    pmap = dict(tr.model.named_parameters())
+    before = {n: p.detach().clone() for n, p in pmap.items()}
+    tr.train(steps_per_epoch=2)
+    after = {int(st["step"]) for st in tr.optimizer.state.values()}
+    still = all(torch.equal(before[n], p.detach()) for n, p in pmap.items())
+    say("est (f)", f"EstPGE_d3nf16 resumed at epoch 80, Adam count {count} "
+        f"-> {sorted(after)} (lr {tr.lr_fn(81)} at epoch 81; mu and nu of "
+        f"{len(held)} leaves equal to the file's; weights unmoved: "
+        f"{still}); losses {[round(s['loss'], 5) for s in tr.steps]}")
+    if after != {count + 2} or not still:
+        raise AssertionError("est resume: Adam count or weights wrong")
+
+
+def est_serving(last, scenes, pge_mean, out_dir, tmp) -> None:
+    """(g) The net of (c) served through `eval_synth --heldout --suite v1
+    --est pge` with a --ckpt-dir holding the gru32 net and that
+    estimator: its mean within 1.0 dB of column (d)."""
+    import shutil
+    serve = os.path.join(tmp, "serve")
+    os.makedirs(serve)
+    shutil.copy(last, serve)
+    os.symlink(os.path.join(CKPTS,
+                            "Gaussian_GRU_mix_1to50c_norm_best_model.ckpt"),
+               os.path.join(serve,
+                            "Gaussian_GRU_mix_1to50c_norm_best_model.ckpt"))
+    rows, _, _ = heldout_column(
+        "gru32_pge_port", GRU32_FLAGS + ["--est", "pge", "--ckpt-dir",
+                                         serve], scenes, out_dir,
+        suite="v1", k1_per_scene=2)
+    mean = rows["_summary"]["mean_psnr"]
+    say("est (g)", f"gru32 + the port-trained estimator, v1: mean "
+        f"{mean:.4f} dB beside column (d)'s {pge_mean:.4f} "
+        f"({mean - pge_mean:+.4f} dB)")
+    if abs(mean - pge_mean) > 1.0:
+        raise AssertionError("est (g): not within 1.0 dB of column (d)")
+
+
+def est_train_phase(bw, fp32, scenes, pge_mean, out_dir) -> dict:
+    """Phase 11: the noise-estimation trainer on the card, (a)-(g), in a
+    temporary directory; TF32 off. Returns K1's record at k = 19."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            est_step_card_vs_cpu(os.path.join(tmp, "a"))
+            rec = est_k1_k19(bw, fp32)
+            tr, last, epochs = est_pge_recipe(os.path.join(tmp, "c"))
+            rec["map_flavour"] = est_map_flavour()
+            est_quality(tr)
+            est_resume(os.path.join(tmp, "f"))
+            est_serving(last, scenes, pge_mean, out_dir, tmp)
+        finally:
+            os.chdir(REPO)
+    rec["pge_recipe_epochs"] = epochs
+    return rec
 
 
 def main(argv=None) -> dict:
@@ -1019,10 +1363,13 @@ def main(argv=None) -> dict:
     bench_gru32()
 
     # 9. the frozen held-out quality gate (eval_synth --heldout) ------------
-    heldout_launches = heldout_gate(out_dir)
+    heldout_launches, scenes, pge_mean = heldout_gate(out_dir)
 
     # 10. training (trainer_awgn's AWGNTrainer) ------------------------------
     train_phase(fp32, peak_key)
+
+    # 11. noise-estimation training (train_est's PGEstTrainer) -------------
+    k19 = est_train_phase(bw, fp32, scenes, pge_mean, out_dir)
 
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
@@ -1047,7 +1394,10 @@ def main(argv=None) -> dict:
                 "ms": {f: t[0] for f, t in tim.items()},
                 "bound_ms": {f: t[1] for f, t in tim.items()},
                 "bound_by": {f: t[2] for f, t in tim.items()}}
-                for lab, tim in timing_h.items()}}}]}
+                for lab, tim in timing_h.items()}},
+        # the est trainer's map flavour: k = 19, mean and var, one launch
+        # a step on the stacked [lr; hr]
+        "training_k19": k19}]}
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

@@ -63,7 +63,9 @@ TRAINING = ["yondx_torch.train", "yondx_torch.train.trainer",
             "yondx_torch.train.ckpt", "yondx_torch.train.draws",
             "yondx_torch.train.s2d_port", "yondx_torch.cli.trainer_awgn",
             "yondx_torch.core.meters", "yondx_torch.data.noise",
-            "yondx_torch.data.augment"]
+            "yondx_torch.data.augment", "yondx_torch.train.pg_trainer",
+            "yondx_torch.cli.train_est", "yondx_torch.data.pg_dataset",
+            "yondx_torch.data.raw_dataset", "yondx_torch.data.video"]
 
 
 def test_training_modules_are_in_the_refused_import_run():

@@ -245,6 +245,15 @@ def randint(key, shape, minval: int, maxval: int) -> np.ndarray:
     return (np.int64(lo) + off.astype(np.int64)).astype(np.int32)
 
 
+def fold_in(key, data: int) -> np.ndarray:
+    """jax.random.fold_in(key, data) for a uint32 `data`: the hash of the
+    counter words (0, data) under the key."""
+    k = _key(key)
+    b1, b2 = threefry2x32(k[0], k[1], np.zeros(1, _U32),
+                          np.array([int(data) & 0xFFFFFFFF], _U32))
+    return np.concatenate([b1, b2]).astype(_U32)
+
+
 def rng_seq(seed_or_key):
     """Infinite generator of fresh keys: key, sub = split(key) per step."""
     key = PRNGKey(seed_or_key) if isinstance(seed_or_key, (int, np.integer)) \
@@ -274,3 +283,139 @@ def exp_f32(x) -> np.ndarray:
     z = _F32(1) + _fma(z, r * r, r)
     two_n = ((n.astype(np.int32) + 127) << 23).astype(np.int32).view(_F32)
     return np.asarray(z * two_n, _F32)
+
+
+# XLA's float32 lgamma (the Lanczos form of its CHLO expansion, g = 7,
+# with log(t) as log(7.5) + log1p(z / 7.5) and z / 7.5 folded to
+# z * (1 / 7.5)), for x >= 0.5: the reflection branch below 0.5 is left out
+_LANCZOS = (676.520368121885098567009190444019,
+            -1259.13921672240287047156422894,
+            771.3234287776530788486528258894,
+            -176.61502916214059906584551354,
+            12.507343278686904814458936895,
+            -0.13857109526572011689554706,
+            9.984369578019570859563e-6,
+            1.50563273514931155834e-7)
+
+
+def lgamma_f32(x) -> np.ndarray:
+    """jax.lax.lgamma(x) for float32 x >= 0.5 as XLA's CPU backend
+    evaluates it."""
+    x = np.asarray(x, _F32)
+    if np.any(x < _F32(0.5)):
+        raise ValueError("lgamma_f32 takes x >= 0.5 (no reflection branch)")
+    z = x + _F32(-1)
+    log_t = _log1p_f32(z * _F32(1 / 7.5)) + _F32(np.log(7.5))
+    r = _fma(((z + _F32(0.5)) - (z + _F32(7.5)) / log_t), log_t,
+             _F32((np.log(2) + np.log(np.pi)) / 2))
+    a = _F32(_LANCZOS[0]) / (z + _F32(1)) + _F32(1)
+    for i, c in enumerate(_LANCZOS[1:], start=2):
+        a = a + _F32(c) / (z + _F32(i))
+    return np.asarray(r + _log_f32(a), _F32)
+
+
+def _uniform_at(key, idx) -> np.ndarray:
+    """uniform(key, shape) read at the flat positions idx of the shape."""
+    idx = np.asarray(idx, np.uint64)
+    b1, b2 = threefry2x32(key[0], key[1],
+                          (idx >> np.uint64(32)).astype(_U32),
+                          (idx & np.uint64(0xFFFFFFFF)).astype(_U32))
+    return _uniform_bits(b1 ^ b2, 0.0, 1.0)
+
+
+def _log_or_ninf(u):
+    """XLA's float32 log of u in [0, 1), with log(0) = -inf."""
+    with np.errstate(divide="ignore"):
+        return np.where(u > 0, _log_f32(u), _F32(-np.inf)).astype(_F32)
+
+
+def _poisson_knuth(key, lam) -> np.ndarray:
+    """Knuth's sampler of jax.random's _poisson_knuth: one split(key) and
+    one uniform field a round while any element still runs; an element
+    runs while its sum of log-uniforms exceeds -lam. Only the running
+    elements are drawn (each element's bits depend on its position
+    alone), so the result equals the whole-field loop's."""
+    k = np.zeros(lam.shape, np.int32)
+    log_prod = np.zeros(lam.shape, _F32)
+    neg = -lam
+    run = np.flatnonzero(log_prod > neg)
+    while run.size:
+        key, sub = split(key)
+        k[run] += 1
+        log_prod[run] = log_prod[run] + _log_or_ninf(_uniform_at(sub, run))
+        run = run[log_prod[run] > neg[run]]
+    return k - 1
+
+
+def _poisson_rejection(key, lam) -> np.ndarray:
+    """Hörmann's transformed rejection as jax.random's _poisson_rejection
+    runs it over the whole field: split(key, 3) a round, until every
+    element has accepted once; `k_out = select(accept, k, k_out)` lets
+    every later acceptance overwrite, so an element's result is its draw
+    in the last round that accepted it, and the number of rounds (set by
+    the slowest element) changes every element. Computed in two sparse
+    passes: forward over the not-yet-accepted elements to find the
+    number of rounds, then backward from the last round over the
+    elements whose last acceptance is still unknown."""
+    sq = np.sqrt(lam)
+    log_lam = _log_f32(lam)
+    b = _fma(sq, _F32(2.53), _F32(0.931))
+    a = _fma(b, _F32(0.02483), _F32(-0.059))
+    two_a = a * _F32(2)
+    inv_alpha = _F32(1.1328) / _fma(sq, _F32(2.53), _F32(0.931) - _F32(3.4)) \
+        + _F32(1.1239)
+    v_r = _F32(0.9277) - _F32(3.6224) / _fma(sq, _F32(2.53),
+                                             _F32(0.931) - _F32(2))
+
+    def round_at(keys, idx):
+        """(accept, k) of the elements idx in one round."""
+        u = _uniform_at(keys[1], idx) + _F32(-0.5)
+        v = _uniform_at(keys[2], idx)
+        us = _F32(0.5) - np.abs(u)
+        la, ai, bi = lam[idx], a[idx], b[idx]
+        kk = np.floor(_fma(two_a[idx] / us + bi, u, la) + _F32(0.43))
+        accept = (us >= _F32(0.07)) & (v <= v_r[idx])
+        reject = (kk < 0) | ((us < _F32(0.013)) & (v > us))
+        test = np.flatnonzero(~reject & ~accept)
+        if test.size:
+            j = idx[test]
+            uu, vv = us[test], v[test]
+            with np.errstate(divide="ignore"):
+                s = _log_or_ninf((vv * inv_alpha[j])
+                                 / (ai[test] / (uu * uu) + bi[test]))
+            t = _fma(kk[test], log_lam[j], -la[test]) \
+                - lgamma_f32(kk[test] + _F32(1))
+            accept[test] = s <= t
+        return accept, kk
+
+    rounds = []
+    todo = np.arange(lam.size)
+    while todo.size:
+        key, k0, k1 = split(key, 3)
+        rounds.append((key, k0, k1))
+        accept, _ = round_at(rounds[-1], todo)
+        todo = todo[~accept]
+    k_out = np.full(lam.shape, -1.0, _F32)
+    todo = np.arange(lam.size)
+    for keys in reversed(rounds):
+        accept, kk = round_at(keys, todo)
+        k_out[todo[accept]] = kk[accept]
+        todo = todo[~accept]
+        if not todo.size:
+            break
+    return k_out.astype(np.int32)
+
+
+def poisson(key, lam) -> np.ndarray:
+    """jax.random.poisson(key, lam) (int32, the shape of lam) as jax 0.9.0
+    samples it: Knuth's method where lam < 10 (or NaN), Hörmann's
+    transformed rejection elsewhere, both run over the whole field (the
+    other branch's elements at lam 0 and 1e5), and 0 where lam == 0."""
+    key = _key(key)
+    lam = np.asarray(lam, _F32)
+    flat = lam.reshape(-1)
+    knuth = np.isnan(flat) | (flat < _F32(10))
+    k1 = _poisson_knuth(key, np.where(knuth, flat, _F32(0)))
+    k2 = _poisson_rejection(key, np.where(knuth, _F32(1e5), flat))
+    out = np.where(knuth, k1, k2)
+    return np.where(flat == 0, 0, out).astype(np.int32).reshape(lam.shape)

@@ -12,7 +12,8 @@ where the unprocessing and the noise run (train/trainer.py).
   .npy disk cache and memory-mapped after that. `python -m
   yondx_torch.cli.eval_synth --content texture` builds its scenes from it;
 - `BatchLoader`: shuffled drop-last batches, a thread pool prefetching in
-  submission order (the order of the single-threaded loader).
+  submission order (the order of the single-threaded loader); `to_unit`
+  moves a batch onto the device.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import threading
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 # the port's own cache directory (the JAX package uses /tmp/yondx_synth)
 DEFAULT_DISK_CACHE = os.path.join(tempfile.gettempdir(), "yondx_torch_synth")
@@ -264,6 +266,15 @@ def _bilinear_resize(g: np.ndarray, S: int) -> np.ndarray:
     d = g[y0 + 1][:, x0 + 1]
     return ((1 - wy) * ((1 - wx) * a + wx * b)
             + wy * ((1 - wx) * c + wx * d)).astype(np.float32)
+
+
+def to_unit(batch, device) -> torch.Tensor:
+    """A host batch onto `device`, uint8 scaled to [0, 1] by 1/255 (as
+    XLA folds the JAX trainers' x / 255 into x * (1 / 255))."""
+    x = torch.as_tensor(np.asarray(batch)).to(device, non_blocking=True)
+    if x.dtype == torch.uint8:
+        x = x.to(torch.float32) * float(np.float32(1.0 / 255.0))
+    return x
 
 
 class BatchLoader:

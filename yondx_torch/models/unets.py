@@ -170,6 +170,57 @@ class GuidedResUnetS2D(nn.Module):
         return out.permute(0, 2, 3, 1)
 
 
+class EstUnet(nn.Module):
+    """Shallow estimation UNet (yondx/models/unets.py:286-328): depth-d
+    double-conv encoder (relu, 2x2 max pool), add-merge decoder, 1x1
+    head; emits a std map, its square when use_type != 'std', or with
+    pge (the default) the map's spatial mean [B, out_nc] (squeezed as
+    the flax model squeezes it). Channels-last in and out."""
+
+    def __init__(self, args: Dict[str, Any]):
+        super().__init__()
+        a = dict(out_nc=4, in_nc=4, depth=3, nf=64, res=False,
+                 use_type="std", pge=True)
+        a.update(args or {})
+        depth, nf = a["depth"], a["nf"]
+        self.depth = depth
+        self.squared = a["use_type"] != "std"
+        self.pge = a["pge"]
+        cin = a["in_nc"]
+        f = nf
+        for i in range(depth):
+            f = nf * (2 ** i)
+            setattr(self, f"down{i}_1", conv3x3(cin, f))
+            setattr(self, f"down{i}_2", conv3x3(f, f))
+            cin = f
+        for i in range(depth - 1):
+            setattr(self, f"up{i}_deconv", UpConvT(f, f // 2))
+            f = f // 2
+            setattr(self, f"up{i}_1", conv3x3(f, f))
+            setattr(self, f"up{i}_2", conv3x3(f, f))
+        self.conv_final = conv1x1(f, a["out_nc"])
+
+    def forward(self, x):
+        h = x.permute(0, 3, 1, 2)
+        skips = []
+        for i in range(self.depth):
+            h = F.relu(getattr(self, f"down{i}_1")(h))
+            h = F.relu(getattr(self, f"down{i}_2")(h))
+            skips.append(h)
+            if i < self.depth - 1:
+                h = F.max_pool2d(h, 2, 2)
+        for i in range(self.depth - 1):
+            h = getattr(self, f"up{i}_deconv")(h) + skips[-(i + 2)]
+            h = F.relu(getattr(self, f"up{i}_1")(h))
+            h = F.relu(getattr(self, f"up{i}_2")(h))
+        out = self.conv_final(h)
+        if self.squared:
+            out = out ** 2
+        if self.pge:
+            return torch.mean(out, dim=(2, 3)).squeeze()
+        return out.permute(0, 2, 3, 1)
+
+
 # bench.py's architectures (bench.py:96-117): the shipped s2dt16, the
 # s2d64 net it was distilled from (no tail), and the gru32 flagship
 S2DT16_ARCH = {"name": "GuidedResUnetS2D", "guided": True, "in_nc": 4,

@@ -57,6 +57,11 @@ def varfilt(x, k: int):
     return out[..., 0] if squeeze else out
 
 
+def stdfilt(x, k: int):
+    """Local std sqrt(max(var_k, 0))."""
+    return torch.sqrt(torch.clamp(varfilt(x, k), min=0.0))
+
+
 def mean_varfilt(x, k: int):
     """(mean_k, max(var_k, 0)) of [..., h, w, C] in one stacked pass."""
     c = torch.mean(x, dim=(-3, -2), keepdim=True)

@@ -64,6 +64,26 @@ def find_checkpoint(fast_ckpt: str, model_name: str,
     return None
 
 
+def resume_checkpoint(fast_ckpt: str, model_name: str,
+                      model: torch.nn.Module, optimizer: torch.optim.Adam,
+                      epoch: int):
+    """Resume a run from `model_name`'s last checkpoint under fast_ckpt
+    (else its best, else the bare name): its weights into `model`, its
+    optax Adam state into `optimizer`. -> (epoch, path, state): the epoch
+    the run continues after (the file's when `epoch` is -1), the file's
+    path and contents; (max(epoch, 0), None, None) when there is none."""
+    path = find_checkpoint(fast_ckpt, model_name, prefer="last")
+    if not path:
+        return max(epoch, 0), None, None
+    state = load_checkpoint(path)
+    model.load_state_dict(params_to_state_dict(state["params"]))
+    if state.get("opt_state"):
+        load_optax_adam_state(optimizer, model, state["opt_state"])
+    if epoch == -1:
+        epoch = int(state.get("epoch", 0))
+    return epoch, path, state
+
+
 def optax_adam_state(optimizer: torch.optim.Adam, net: torch.nn.Module
                      ) -> Dict[str, Any]:
     """torch.optim.Adam's state for `net` as optax's

@@ -38,15 +38,16 @@ from ..core import rng
 from ..core.logging import log, timestamp
 from ..core.meters import AverageMeter
 from ..data.augment import data_aug8
-from ..data.datasets import BatchLoader, NpyFolderDataset, SyntheticSRGBDataset
-from ..data.noise import (INV255, awgn_log_uniform, awgn_log_uniform_lowmix,
+from ..data.datasets import (BatchLoader, NpyFolderDataset,
+                             SyntheticSRGBDataset, to_unit)
+from ..data.noise import (awgn_log_uniform, awgn_log_uniform_lowmix,
                           awgn_uniform)
 from ..data.unprocess import srgb_to_pseudo_raw_device
 from ..io.ckpt import load_checkpoint as read_params
 from ..models.convert import params_to_state_dict, state_dict_to_params
 from ..models.registry import build_model, init_params, is_guided
-from .ckpt import (find_checkpoint, load_checkpoint, load_optax_adam_state,
-                   optax_adam_state, save_checkpoint)
+from .ckpt import (find_checkpoint, optax_adam_state, resume_checkpoint,
+                   save_checkpoint)
 from .draws import FieldSource, eval_keys, train_keys
 from .losses import psnr_loss, unet_loss
 from .schedule import lr_lambda_from_hyper
@@ -95,23 +96,15 @@ class AWGNTrainer:
 
         # resume; last_epoch == -1 continues from the checkpoint's epoch
         if self.epoch:
-            path = find_checkpoint(self.fast_ckpt, self.model_name,
-                                   prefer="last")
+            self.epoch, path, state = resume_checkpoint(
+                self.fast_ckpt, self.model_name, self.model, self.optimizer,
+                self.epoch)
             if path:
-                state = load_checkpoint(path)
-                self.load_params(state["params"])
-                if state.get("opt_state"):
-                    load_optax_adam_state(self.optimizer, self.model,
-                                          state["opt_state"])
                 self.best_psnr = float(state.get("best_psnr",
                                                  self.best_psnr))
-                if self.epoch == -1:
-                    self.epoch = int(state.get("epoch", 0))
                 log(f"Resumed from {path} @ epoch {state.get('epoch')}",
                     logfile=self.logfile)
             else:
-                if self.epoch == -1:
-                    self.epoch = 0
                 log("No checkpoint file!!!", logfile=self.logfile)
 
         self.train_psnr = AverageMeter("PSNR", ":2f")
@@ -185,13 +178,6 @@ class AWGNTrainer:
             return checkpoint(net, *args, use_reentrant=False)
         return net(*args)
 
-    def _to_unit(self, batch) -> torch.Tensor:
-        x = torch.as_tensor(np.asarray(batch)).to(self.device,
-                                                  non_blocking=True)
-        if x.dtype == torch.uint8:
-            x = x.to(torch.float32) * float(INV255)
-        return x
-
     def train_step(self, batch, keys, lr_value: float,
                    use_consistency: float = 0.0, ema=None):
         """One optimizer step on a host batch of sRGB crops.
@@ -201,7 +187,7 @@ class AWGNTrainer:
         with loss and psnr 0-d device tensors and sample the first crop's
         (noisy, pred, hr, wb, cam2rgb, pattern)."""
         k_data, k_noise, k_cons = keys
-        x = self._to_unit(batch)
+        x = to_unit(batch, self.device)
         B = x.shape[0]
         smin, smax = self.sigma_min, self.sigma_max
         if self.rgb_mode:
@@ -420,7 +406,7 @@ class AWGNTrainer:
         loader = self._make_loader("eval")
         field = FieldSource("jax", self.device)
         for batch, (k1, k2) in zip(loader.epoch(0), eval_keys()):
-            b = self._to_unit(batch)
+            b = to_unit(batch, self.device)
             if self.rgb_mode:
                 hr = b
             else:
