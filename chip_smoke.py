@@ -29,7 +29,15 @@ against its plain version and its bound, the EstPGE.yml recipe at full
 width, 20 steps of the EstUnet map flavour (K1 once a step), the PGE
 eval loss of the committed and the new estimator, a resume of the
 committed estimator, and the new estimator served through
-`eval_synth --heldout --suite v1 --est pge`. Every phase prints one
+`eval_synth --heldout --suite v1 --est pge`. Phase 12 runs what a
+runfile or an eval_synth flag can name besides: the committed
+UNetSeeInDark card vs CPU, the 'unetn' CLI path (the ANY runfile with
+that net, unguided) on the 3072x4096 frame and card vs CPU on a crop of
+it, its AWGN recipe (Unet_5to50_norm.yml, 12 steps) and its eval
+anchor, the est_* block of runfiles/YOND/SIDD_pge_pre_grumix.yml through
+engine.iter_denoise card vs CPU and through --input, and the host BM3D
+column `eval_synth --heldout --scene-filter photo --denoiser bm3d` held to
+docs/heldout/r5_bm3d_photo_cpu.json. Every phase prints one
 line with its elapsed seconds; any failure raises (exit code != 0). The
 last two lines are the kernels' JSON record and the device JSON record.
 With --out, each held-out column's eval_synth JSON is written into DIR.
@@ -210,10 +218,12 @@ def any_params():
             "gain": 1.0, "sigma": 0.0}
 
 
-def cli_path(noisy, clean) -> dict:
+def cli_path(noisy, clean, runfile=ANY_RUNFILE, label="cli path",
+             min_gain=10.0) -> dict:
     """The ANY-camera CLI path on the 3072x4096 frame: one run of the
     CLI as a user types it (K1 counts read around it), then its engine
-    timed on the same frame and profiled once. fp32, TF32 off."""
+    timed on the same frame and profiled once; the output's PSNR gain
+    held at `min_gain` dB or more. fp32, TF32 off."""
     from yondx_torch.cli import yond
     from yondx_torch.nle import moments
     H, W = noisy.shape
@@ -223,7 +233,7 @@ def cli_path(noisy, clean) -> dict:
         np.save(fin, noisy)
         moments.reset_launches()
         t = time.perf_counter()
-        app = yond.main(["-f", ANY_RUNFILE, "--input", fin, "--output",
+        app = yond.main(["-f", runfile, "--input", fin, "--output",
                          fout])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t
@@ -235,11 +245,12 @@ def cli_path(noisy, clean) -> dict:
         raise AssertionError(f"CLI output outside [0, 1]: {out.min()}, "
                              f"{out.max()}")
     p_in, p_out = psnr(noisy, clean), psnr(out, clean)
-    say("cli path", f"yond --input ({H}x{W}) in {cli_s:.2f} s (first run: "
+    say(label, f"yond --input ({H}x{W}) in {cli_s:.2f} s (first run: "
         f"model load and cuDNN planning included); PSNR {p_in:.2f} -> "
         f"{p_out:.2f} dB; K1 launches {launches}")
-    if p_out < p_in + 10.0:
-        raise AssertionError(f"CLI PSNR gain {p_out - p_in:.2f} dB < 10 dB")
+    if p_out < p_in + min_gain:
+        raise AssertionError(f"CLI PSNR gain {p_out - p_in:.2f} dB < "
+                             f"{min_gain} dB")
     # one self fit + two collab fits (lr, dn) on whole planes
     if launches != 3:
         raise AssertionError(f"K1 launched {launches} times in the CLI "
@@ -265,7 +276,7 @@ def cli_path(noisy, clean) -> dict:
     dt = float(np.median(times))
     k_est = float(res["regs"][0][0] * 959)
     dn = res["raw_dns"][-1]
-    say("cli path", f"engine.iter_denoise_tiled {H}x{W}, tiles 1024/64, "
+    say(label, f"engine.iter_denoise_tiled {H}x{W}, tiles 1024/64, "
         f"batch 8: {dt * 1e3:.2f} ms/frame, {H * W / 1e6 / dt:.2f} MP/s "
         f"(median of {runs}; runs {[round(x * 1e3, 2) for x in times]} "
         f"ms); PSNR {p_in:.2f} -> {psnr(dn, clean):.2f} dB; K_est "
@@ -282,23 +293,25 @@ def cli_path(noisy, clean) -> dict:
     n_tiles = -(-ny * nx // 8) * 8              # padded to the batch of 8
     side = 1024 // 2 + 64                       # RGGB side of a tile
     per_px = net_flop_per_pixel(app.model)
-    say("cli path", f"net {per_px * n_tiles * side ** 2 / 1e12:.3f} TFLOP a "
+    say(label, f"net {per_px * n_tiles * side ** 2 / 1e12:.3f} TFLOP a "
         f"pass ({n_tiles} tiles of {side}x{side}x4, {per_px / 1e6:.4f} "
         "MFLOP per RGGB pixel)")
-    profile_run("cli profile", frame)
+    profile_run(f"{label} profile", frame)
     return {"launches": launches, "ms_frame": dt * 1e3}
 
 
-def engine_card_vs_cpu() -> None:
+def engine_card_vs_cpu(runfile=ANY_RUNFILE, small=None,
+                       label="engine cuda vs cpu") -> None:
     """The CLI's engine (gru32 fp32) on a 504x768 frame, tiles of 256 with
     halo 64 (2x3 tiles, one padded chunk of 8), on the card and on the
     CPU: regs of both rounds to the larger of rtol 1e-3 and the card's
     own +-1e-6 frame-shift spread (as phase 4), the output to 1e-3."""
     from yondx_torch.cli import yond
-    small, _ = make_frame(512, 768, seed=3)
+    if small is None:
+        small, _ = make_frame(512, 768, seed=3)
     res = {}
     for d in ("cuda", "cpu"):
-        engine = yond.YOND(["-f", ANY_RUNFILE, "--device", d]).engine
+        engine = yond.YOND(["-f", runfile, "--device", d]).engine
         res[d] = engine.iter_denoise_tiled({"lr": small}, any_params(),
                                            tile=256, halo=64)
         if d == "cuda":
@@ -311,7 +324,7 @@ def engine_card_vs_cpu() -> None:
     err_r = np.abs(rg - rc)
     err_o = float(np.abs(res["cuda"]["raw_dns"][-1]
                          - res["cpu"]["raw_dns"][-1]).max())
-    say("engine cuda vs cpu", f"{small.shape[0]}x{small.shape[1]}: regs "
+    say(label, f"{small.shape[0]}x{small.shape[1]}: regs "
         f"cuda {rg.tolist()} cpu {rc.tolist()}; |diff| {err_r.tolist()}, "
         f"allowed {allowed.tolist()} (+-1e-6 shift spread on the card "
         f"{spread.tolist()}); output max abs diff {err_o:.3e}")
@@ -371,11 +384,12 @@ def heldout_column(label, flags, scenes, out_dir, suite="v3",
     launches = moments.LAUNCHES["nle_moments"]
     n = len(rows) - 1
     sm = rows["_summary"]
+    glyph = sm["glyphs_min_margin"]
     say(f"heldout {label}", f"suite {suite}, {n} scenes in {wall:.2f} s "
         f"({n / wall:.3f} scenes/s), K1 launches {launches}; mean "
         f"{sm['mean_psnr']:.4f} dB (noisy {sm['mean_noisy']:.4f}), "
         f"{sm['n_below_input']} below input, glyph margin "
-        f"{sm['glyphs_min_margin']:+.4f}; gain by class "
+        + ("none" if glyph is None else f"{glyph:+.4f}") + "; gain by class "
         + ", ".join(f"{k} {v['mean']:+.3f}"
                     for k, v in sm["per_class_gain"].items()))
     if launches != k1_per_scene * n:
@@ -523,6 +537,12 @@ CKPTS = os.path.join(REPO, "checkpoints", "Gaussian")
 # to 64 crops (SyntheticSRGBDataset v6, seed 2024): sigma -> (PSNR, SSIM)
 JAX_EVAL = {10: (31.0084, 0.9092), 25: (30.0677, 0.8855),
             50: (28.7428, 0.8368)}
+# the same for the committed Gaussian_Unet_mix_5to50_norm best checkpoint
+# (UNetSeeInDark nf 32) on Unet_5to50_norm.yml's eval set cut to 64 crops:
+# tests/test_torch_unets_zoo.py::test_jax_eval_unet_anchor_of_chip_smoke
+# recomputes it
+JAX_EVAL_UNET = {10: (31.3701, 0.9073), 25: (29.3729, 0.8681),
+                 50: (27.2213, 0.8014)}
 
 
 def _train_args(runfile, tmp, **dst):
@@ -571,19 +591,21 @@ def train_step_card_vs_cpu(tmp) -> None:
               max_frac=1e-3)
 
 
-def train_full_width(tmp, fp32_peak, peak_key) -> None:
+def train_full_width(tmp, fp32_peak, peak_key, runfile=TRAIN_RUNFILE,
+                     label="train (b)") -> None:
     """(b) GRU_5to50_norm_mix.yml as written (gru32 nf=32, batch 64,
     patch 256, WarmupCosine at 2e-4) from a fresh init equal to JAX's,
     one epoch of 12 steps over a 768-crop synthetic set built once
     through the disk cache, "torch" fields, TF32 off; save_freq 1 so
-    that epoch 1 writes its `last` checkpoint."""
+    that epoch 1 writes its `last` checkpoint. Another AWGN `runfile` of
+    the same layout runs the same way."""
     from yondx_torch.data.datasets import SyntheticSRGBDataset
     from yondx_torch.models.registry import param_count
     from yondx_torch.models.unets import load_model
     from yondx_torch.train import AWGNTrainer
     from yondx_torch.train.draws import train_keys
     n_steps, warm = 12, 2
-    args = _train_args(TRAIN_RUNFILE, tmp,
+    args = _train_args(runfile, tmp,
                        dst_train={"synthetic_len": 64 * n_steps},
                        dst_eval={"synthetic_len": 64})
     args["hyper"]["save_freq"] = 1
@@ -591,11 +613,11 @@ def train_full_width(tmp, fp32_peak, peak_key) -> None:
     for mode, n in (("train", 64 * n_steps), ("eval", 64)):
         SyntheticSRGBDataset(length=n, size=256,
                              seed=1997 if mode == "train" else 2024)
-    say("train (b)", f"built the synthetic sets (768 + 64 crops of 256 px) "
+    say(label, f"built the synthetic sets (768 + 64 crops of 256 px) "
         f"through the disk cache in {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     tr = AWGNTrainer(args, device="cuda", field="torch")
-    say("train (b)", f"trainer with a fresh init equal to JAX's "
+    say(label, f"trainer with a fresh init equal to JAX's "
         f"({param_count(tr.model)} parameters) in "
         f"{time.perf_counter() - t:.2f} s")
     torch.cuda.synchronize()
@@ -617,7 +639,8 @@ def train_full_width(tmp, fp32_peak, peak_key) -> None:
     px = 64 * 128 * 128                     # RGGB pixels a step
     per_px = net_flop_per_pixel(tr.model)
     tflops = 3 * per_px * px / step_s / 1e12
-    say("train (b)", f"gru32 nf=32 fp32 (TF32 off), batch 64 x [128,128,4]: "
+    say(label, f"{args['arch']['name']} nf={args['arch']['nf']} fp32 (TF32 "
+        f"off), batch 64 x [128,128,4]: "
         f"{step_s * 1e3:.2f} ms/step (median of steps {warm + 1}-{n_steps}, "
         f"synchronised; all {[round(s['step_s'] * 1e3, 2) for s in steps]} "
         f"ms), {64 / step_s:.1f} samples/s, {px / step_s / 1e6:.2f} RGGB "
@@ -626,10 +649,10 @@ def train_full_width(tmp, fp32_peak, peak_key) -> None:
         f"{fp32_peak / 1e12:.0f} TFLOP/s fp32 peak ({peak_key}); peak memory "
         f"{peak_mem / 2 ** 30:.2f} GiB; loader share {100 * share:.2f}%; "
         f"{wall:.2f} s for the epoch")
-    say("train (b)", "loss per step " + ", ".join(f"{v:.5f}" for v in losses)
+    say(label, "loss per step " + ", ".join(f"{v:.5f}" for v in losses)
         + f"; train PSNR {tr.train_psnr.avg:.4f} dB")
     last = os.path.join(args["fast_ckpt"],
-                        "Gaussian_GRU_mix_5to50_norm_last_model.ckpt")
+                        f"{args['model_name']}_last_model.ckpt")
     if not os.path.exists(last):
         raise AssertionError("the last checkpoint was not written")
     # where a step's time goes: one more step under the profiler, at lr 0
@@ -637,31 +660,33 @@ def train_full_width(tmp, fp32_peak, peak_key) -> None:
     ds = SyntheticSRGBDataset(length=64 * n_steps, size=256, seed=1997)
     batch = np.stack([ds[i] for i in range(64)])
     keys = next(train_keys(7))
-    profile_run("train profile", lambda: tr.train_step(batch, keys, 0.0))
+    profile_run(f"{label} profile", lambda: tr.train_step(batch, keys, 0.0))
     p_run, _ = tr.eval(epoch=-1, sigma=25)
     tr.model = load_model(args["arch"], last, device="cuda")
     p_back, _ = tr.eval(epoch=-1, sigma=25)
-    say("train (b)", f"eval at sigma 25: {p_run:.4f} dB after the run, "
+    say(label, f"eval at sigma 25: {p_run:.4f} dB after the run, "
         f"{p_back:.4f} dB through load_model of the last checkpoint")
     if abs(p_run - p_back) > 1e-4:
         raise AssertionError("the last checkpoint evaluates apart from the "
                              "net that wrote it")
 
 
-def train_quality_anchor(tmp) -> None:
-    """(c) AWGNTrainer.eval on the card with the committed 5to50 best
-    checkpoint on the runfile's eval set cut to 64 crops, against the
-    JAX package's CPU readings (JAX_EVAL) within 0.02 dB."""
+def train_quality_anchor(tmp, runfile=TRAIN_RUNFILE, anchor=JAX_EVAL,
+                         label="train (c)") -> None:
+    """(c) AWGNTrainer.eval on the card with the committed best checkpoint
+    of the runfile's model (5to50 gru32) on the runfile's eval set cut to
+    64 crops, against the JAX package's CPU readings (`anchor`) within
+    0.02 dB."""
     from yondx_torch.io.ckpt import load_checkpoint
     from yondx_torch.train import AWGNTrainer
-    args = _train_args(TRAIN_RUNFILE, tmp, dst_eval={"synthetic_len": 64})
+    args = _train_args(runfile, tmp, dst_eval={"synthetic_len": 64})
     tr = AWGNTrainer(args, device="cuda", field="torch")
     tr.load_params(load_checkpoint(os.path.join(
-        CKPTS, "Gaussian_GRU_mix_5to50_norm_best_model.ckpt"))["params"])
-    for sigma, (want_p, want_s) in JAX_EVAL.items():
+        CKPTS, f"{args['model_name']}_best_model.ckpt"))["params"])
+    for sigma, (want_p, want_s) in anchor.items():
         t = time.perf_counter()
         p, ssim = tr.eval(epoch=-1, sigma=sigma)
-        say("train (c)", f"sigma {sigma}: eval PSNR {p:.4f} dB (JAX CPU "
+        say(label, f"sigma {sigma}: eval PSNR {p:.4f} dB (JAX CPU "
             f"{want_p:.4f}, diff {p - want_p:+.4f}), SSIM {ssim:.4f} (JAX "
             f"{want_s:.4f}); {time.perf_counter() - t:.2f} s")
         if abs(p - want_p) > 0.02:
@@ -853,8 +878,9 @@ def est_step_card_vs_cpu(tmp) -> None:
             out[d] = step_record(tr, tr.step(
                 {k: v.to(tr.device) for k, v in inputs.items()}, lr))
         # gradients and moments: 1e-4 of each tensor's max (phase 10a
-        # holds 1e-3); fp32 sums in cuDNN's and the CPU's orders put
-        # EstUnet nf64's down1_1 bias gradient at 2.3e-5
+        # holds 1e-3); EstUnet nf64's down1_1 bias gradient sits 2.3e-5
+        # apart, the CPU's float32 sum's error: against float64 the CPU
+        # reads 2.3e-5 and the card 1e-7 (scripts/torch_est_grad_f64.py)
         hold_step("est (a) cuda vs cpu", label, out, lr, loss_rtol=1e-5,
                   max_frac=1e-4)
     torch.backends.cudnn.deterministic = False
@@ -1117,6 +1143,209 @@ def est_train_phase(bw, fp32, scenes, pge_mean, out_dir) -> dict:
     return rec
 
 
+UNET_RUNFILE = "runfiles/Gaussian/Unet_5to50_norm.yml"
+UNET_CKPT = os.path.join(CKPTS,
+                         "Gaussian_Unet_mix_5to50_norm_best_model.ckpt")
+PGE_RUNFILE = "runfiles/YOND/SIDD_pge_pre_grumix.yml"
+BM3D_ART = "docs/heldout/r5_bm3d_photo_cpu.json"
+
+
+def unetn_runfile(tmp) -> str:
+    """The ANY runfile with arch and model_name swapped to the committed
+    UNetSeeInDark (unguided, in VST space: the reference's 'unetn'
+    configuration), written into `tmp`."""
+    with open(os.path.join(REPO, ANY_RUNFILE)) as f:
+        head, arch = f.read().split("arch:")
+    head = head.replace("fast_ckpt: 'checkpoints/Gaussian'",
+                        f"fast_ckpt: '{CKPTS}'").replace(
+        "Gaussian_GRU_mix_1to50c_norm", "Gaussian_Unet_mix_5to50_norm")
+    arch = arch.replace("'GuidedResUnet'", "'UNetSeeInDark'").replace(
+        "guided: True", "guided: False")
+    path = os.path.join(tmp, "ANY_simple+full_pre_unetn.yml")
+    with open(path, "w") as f:
+        f.write(head + "arch:" + arch)
+    return path
+
+
+def unet_forward_card_vs_cpu() -> None:
+    """(a) The committed UNetSeeInDark (nf 32) fp32, TF32 off, on a
+    [2,128,128,4] stack, card against CPU within atol 1e-4."""
+    from yondx_torch.config import load_runfile
+    from yondx_torch.models.unets import load_model
+    arch = load_runfile(os.path.join(REPO, UNET_RUNFILE))["arch"]
+    x = torch.rand((2, 128, 128, 4),
+                   generator=torch.Generator().manual_seed(12))
+    out = {}
+    for d in ("cuda", "cpu"):
+        net = load_model(arch, UNET_CKPT, device=d)
+        with torch.no_grad():
+            out[d] = net(x.to(d)).cpu()
+    n = sum(p.numel() for p in net.parameters())
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    say("unet (a)", f"UNetSeeInDark nf {arch['nf']} ({n} parameters) on "
+        f"[2,128,128,4]: card vs CPU max abs err {err:.3e}")
+    if not bool(torch.isfinite(out["cuda"]).all()) or err > 1e-4:
+        raise AssertionError(f"unet (a): card and CPU differ by {err}")
+
+
+def est_block_path(noisy, clean, scenes) -> dict:
+    """(d) YOND from runfiles/YOND/SIDD_pge_pre_grumix.yml (gru32 with
+    refine and its est_net block, the committed EstPGE_d3nf16) on the card
+    and on the CPU: engine.iter_denoise on photo_mid's held-out crop stack
+    [4,512,512] (round 0 from the est net, so K1 runs only for the collab
+    fit: 2 launches), card against CPU: regs with phase 7's rule, PSNR
+    within 0.01 dB and at most 1e-4 of the pixels apart by more than 1e-3
+    (as phase 9e: the runfile's refine buckets its noise floor by
+    floor(63 z), so an ulp can move a pixel by a few 1e-3); then --input
+    once on the frame, which runs the self NLE whatever est_type says (as
+    JAX's CLI does): its seconds, PSNR and K1 launches (3)."""
+    from yondx_torch.cli import yond
+    from yondx_torch.eval import heldout
+    from yondx_torch.nle import moments
+    hr, lr = scenes[("photo_mid", None)]
+    p = {"wp": heldout.WP, "bl": heldout.BL, "ratio": 1,
+         "scale": float(heldout.WP - heldout.BL), "gain": 1.0, "sigma": 0.0}
+    res, apps = {}, {}
+    for d in ("cuda", "cpu"):
+        apps[d] = yond.YOND(["-f", PGE_RUNFILE, "--device", d])
+        moments.reset_launches()
+        t = time.perf_counter()
+        res[d] = apps[d].engine.iter_denoise({"lr": lr}, dict(p))
+        if d == "cuda":
+            torch.cuda.synchronize()
+            est_s = time.perf_counter() - t
+            launches = moments.LAUNCHES["nle_moments"]
+            spread = np.max([np.abs(np.array(apps[d].engine.iter_denoise(
+                {"lr": lr + sh}, dict(p))["regs"])
+                - np.array(res[d]["regs"])) for sh in (1e-6, -1e-6)],
+                axis=0)
+    est = apps["cuda"].est_models["est_net"]
+    rg, rc = np.array(res["cuda"]["regs"]), np.array(res["cpu"]["regs"])
+    allowed = np.maximum(1e-3 * np.abs(rc), spread)
+    diff = np.abs(res["cuda"]["raw_dns"][-1] - res["cpu"]["raw_dns"][-1])
+    apart = float(np.mean(diff > 1e-3))
+    pg, pc = (psnr(res[d]["raw_dns"][-1], hr) for d in ("cuda", "cpu"))
+    say("est block (d)", f"iter_denoise on photo_mid's [4,512,512] with the "
+        f"est net: {est_s:.2f} s on the card (first call); est net "
+        f"(K, sigma) {est.outputs[0].tolist()}; K1 launches {launches}; "
+        f"regs cuda {rg.tolist()} cpu {rc.tolist()}, allowed "
+        f"{allowed.tolist()}; PSNR cuda {pg:.4f} cpu {pc:.4f} dB; output "
+        f"max abs diff {float(diff.max()):.3e}, {apart:.2e} of the pixels "
+        "apart by > 1e-3")
+    if launches != 2:
+        raise AssertionError(f"est block: K1 launched {launches} times, "
+                             "expected 2 (collab only)")
+    if not (np.abs(rg - rc) <= allowed).all() or abs(pg - pc) > 0.01 \
+            or apart > 1e-4:
+        raise AssertionError("est block: card and CPU disagree")
+    calls = est.calls
+    H, W = noisy.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        fin, fout = os.path.join(tmp, "frame.npy"), os.path.join(tmp,
+                                                                 "dn.npy")
+        np.save(fin, noisy)
+        moments.reset_launches()
+        t = time.perf_counter()
+        app = yond.main(["-f", PGE_RUNFILE, "--input", fin, "--output",
+                         fout])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        out = np.load(fout)
+    launches_in = moments.LAUNCHES["nle_moments"]
+    p_in, p_out = psnr(noisy, clean), psnr(out, clean)
+    say("est block (d)", f"yond -f {PGE_RUNFILE} --input ({H}x{W}): "
+        f"{cli_s * 1e3:.2f} ms for the one run (model loads and cuDNN "
+        f"planning included); PSNR {p_in:.2f} -> {p_out:.2f} dB; K1 "
+        f"launches {launches_in}; est net calls "
+        f"{app.est_models['est_net'].calls}")
+    if p_out < p_in + 10.0 or launches_in != 3 or \
+            app.est_models["est_net"].calls or est.calls != calls:
+        raise AssertionError("est block --input: PSNR gain, K1 launches or "
+                             "est net calls wrong")
+    return {"iter_denoise": launches, "input": launches_in}
+
+
+def bm3d_column(scenes, out_dir) -> int:
+    """(e) eval_synth --heldout --suite v3 --scene-filter photo --denoiser
+    bm3d (3 scenes of 4 crops of 512 px; BM3D on the host, the rest on the
+    card) held to docs/heldout/r5_bm3d_photo_cpu.json: each scene within
+    0.05 dB, the mean within 0.02 dB, do_no_harm as recorded. Returns K1's
+    launches (3 a scene)."""
+    with open(os.path.join(REPO, BM3D_ART)) as f:
+        art = json.load(f)["rows"]
+    t = time.perf_counter()
+    rows, launches, eng = heldout_column(
+        "bm3d_photo", ["--scene-filter", "photo", "--denoiser", "bm3d"],
+        scenes, out_dir)
+    wall = time.perf_counter() - t
+    names = [k for k in rows if k != "_summary"]
+    host = eng.denoiser.host_s
+    say("bm3d (e)", f"{len(names)} scenes in {wall:.2f} s: "
+        f"{wall / len(names):.2f} s a scene, of which host BM3D "
+        f"{host / len(names):.2f} s and the rest (the card's NLE, VST and "
+        f"copies) {(wall - host) / len(names):.2f} s; rows "
+        + ", ".join(f"{k} {rows[k]['psnr'][-1]:.4f} (artifact "
+                    f"{art[k]['psnr'][-1]:.4f})" for k in names)
+        + f"; mean {rows['_summary']['mean_psnr']:.4f} (artifact "
+        f"{art['_summary']['mean_psnr']:.4f})")
+    if sorted(names) != sorted(k for k in art if k != "_summary"):
+        raise AssertionError(f"bm3d: scenes {names}")
+    for k in names:
+        if abs(rows[k]["psnr"][-1] - art[k]["psnr"][-1]) > 0.05 or \
+                rows[k]["do_no_harm"] != art[k]["do_no_harm"]:
+            raise AssertionError(f"bm3d: {k} apart from the artifact")
+    if abs(rows["_summary"]["mean_psnr"]
+           - art["_summary"]["mean_psnr"]) > 0.02:
+        raise AssertionError("bm3d: mean not within 0.02 dB")
+    return launches
+
+
+def unetn_phase(noisy, clean, scenes, fp32_peak, peak_key, out_dir) -> dict:
+    """Phase 12: the UNetSeeInDark 'unetn' denoiser, the est_* block and
+    the host BM3D, (a)-(e); TF32 off. Returns K1's launches per path."""
+    from yondx_torch.nle import moments
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {}
+    t = time.perf_counter()
+    unet_forward_card_vs_cpu()
+    say("phase 12", f"(a) in {time.perf_counter() - t:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        runfile = unetn_runfile(tmp)
+        # the unguided Unet gains about 7 dB on this frame's content in
+        # the JAX package and the port alike (CPU, a 1024x2048 crop:
+        # 24.49 -> 31.50 dB in both), against the guided nets' 19.7: its
+        # floor is 5 dB; card vs CPU below holds its numerics
+        cli = cli_path(noisy, clean, runfile, label="unetn cli (b)",
+                       min_gain=5.0)
+        rec["unetn_cli"] = cli["launches"]
+        engine_card_vs_cpu(runfile, np.ascontiguousarray(noisy[:512, :1024]),
+                           label="unetn cuda vs cpu (b)")
+        say("phase 12", f"(b) in {time.perf_counter() - t:.2f} s")
+        os.chdir(tmp)
+        try:
+            t = time.perf_counter()
+            moments.reset_launches()
+            train_full_width(os.path.join(tmp, "c"), fp32_peak, peak_key,
+                             UNET_RUNFILE, label="unet recipe (c)")
+            rec["unet_trainer"] = moments.LAUNCHES["nle_moments"]
+            train_quality_anchor(os.path.join(tmp, "c_eval"), UNET_RUNFILE,
+                                 JAX_EVAL_UNET, label="unet anchor (c)")
+            if rec["unet_trainer"]:
+                raise AssertionError("the Unet trainer launched K1")
+            say("phase 12", f"(c) in {time.perf_counter() - t:.2f} s")
+        finally:
+            os.chdir(REPO)
+    t = time.perf_counter()
+    rec.update(est_block_path(noisy, clean, scenes))
+    say("phase 12", f"(d) in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    rec["bm3d_heldout"] = bm3d_column(scenes, out_dir)
+    say("phase 12", f"(e) in {time.perf_counter() - t:.2f} s")
+    return rec
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, metavar="DIR",
@@ -1371,6 +1600,9 @@ def main(argv=None) -> dict:
     # 11. noise-estimation training (train_est's PGEstTrainer) -------------
     k19 = est_train_phase(bw, fp32, scenes, pge_mean, out_dir)
 
+    # 12. the 'unetn' denoiser, the est_* block, the host BM3D ---------------
+    phase12 = unetn_phase(noisy, clean, scenes, fp32, peak_key, out_dir)
+
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
         "source": "yondx_torch/csrc/nle_moments.cu",
@@ -1397,7 +1629,12 @@ def main(argv=None) -> dict:
                 for lab, tim in timing_h.items()}},
         # the est trainer's map flavour: k = 19, mean and var, one launch
         # a step on the stacked [lr; hr]
-        "training_k19": k19}]}
+        "training_k19": k19,
+        # phase 12's paths: the 'unetn' CLI run (3 a frame), iter_denoise
+        # with the est net (collab only, 2 a scene), --input with the pge
+        # runfile (3), the BM3D photo column (3 a scene), the Unet
+        # trainer (0)
+        "phase12": phase12}]}
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

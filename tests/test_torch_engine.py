@@ -245,7 +245,7 @@ def test_vst_denoiser_pair_matches_jax(gru32, refine):
 
 def test_denoisers_reject_what_the_port_lacks(nf8):
     net = nf8[2]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         VSTDenoiser(net, fbi=True, device="cpu")
     # the q10 floor (ROADMAP item 4's refine part) now runs
     lr = _bayer(64, 64, 1, (2, 2))
@@ -308,7 +308,17 @@ def test_engine_matches_jax(nf8, route):
 
 
 def test_engine_raises_for_estimates_it_lacks(nf8):
-    te = YONDEngine(VSTDenoiser(nf8[2], device="cpu"),
-                    PipelineConfig.from_dict(dict(PIPE, est_type="foi")))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        te.iter_denoise({"lr": _bayer(64, 64, 1, (2, 2))}, _p())
+    """A file-based est_type without its file raises FileNotFoundError, and
+    an est_type no source serves NotImplementedError, as in JAX."""
+    lr = _bayer(64, 64, 1, (2, 2))
+    for est_type, err in (("foi", FileNotFoundError),
+                          ("nothing", NotImplementedError)):
+        pipe = dict(PIPE, est_type=est_type)
+        je = JYONDEngine(JVSTDenoiser(None, None),
+                         JPipelineConfig.from_dict(pipe))
+        with pytest.raises(err):
+            je.iter_denoise({"lr": lr}, _p())
+        te = YONDEngine(VSTDenoiser(nf8[2], device="cpu"),
+                        PipelineConfig.from_dict(pipe))
+        with pytest.raises(err):
+            te.iter_denoise({"lr": lr}, _p())

@@ -31,7 +31,7 @@ from yondx_torch.models.convert import params_to_state_dict
 from yondx_torch.models.registry import build_model
 from yondx_torch.models.unets import GuidedResUnet, load_model
 from yondx_torch.pipeline import refine as t_refine
-from yondx_torch.pipeline.denoiser import VSTDenoiser
+from yondx_torch.pipeline.denoiser import BM3DVSTDenoiser, VSTDenoiser
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -135,9 +135,10 @@ def test_engine_pge_est_net_matches_jax(est):
                                rtol=1e-3)
     for g, r in zip(got["raw_dns"], ref["raw_dns"]):
         np.testing.assert_allclose(g, r, atol=2e-4, rtol=0)
-    # without an est_net, 'pge' needs the precomputed files: still raises
+    # without an est_net, 'pge' reads the precomputed PGE_fullPict.npy,
+    # absent here: FileNotFoundError, as in JAX
     te0 = YONDEngine(VSTDenoiser(net, device="cpu"), PipelineConfig(**pipe))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(FileNotFoundError, match="PGE_fullPict"):
         te0.iter_denoise({"lr": lr}, dict(p))
 
 
@@ -246,9 +247,11 @@ def test_eval_synth_parser_matches_jax():
     assert eval_synth.parse_args([]).shrink is False
     with pytest.raises(SystemExit):
         eval_synth.parse_args(["--shrink", "on"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eval_synth.build_denoiser(eval_synth.parse_args(
-            ["--denoiser", "bm3d", "--cpu"]))
+    bm3d = eval_synth.build_denoiser(eval_synth.parse_args(
+        ["--denoiser", "bm3d", "--cpu"]))
+    assert isinstance(bm3d, BM3DVSTDenoiser)
+    assert (bm3d.bias_corr, bm3d.exact_inverse, bm3d.device.type) == \
+        ("pre", False, "cpu")
     with pytest.raises(FileNotFoundError):
         eval_synth.build_denoiser(eval_synth.parse_args(
             ["--model", "no_such_model", "--cpu"]))

@@ -28,10 +28,11 @@ from ..data.datasets import SyntheticSRGBDataset
 from ..data.unprocess import srgb_to_pseudo_raw
 from ..eval.metrics import matlab_ssim, psnr
 from ..io.ckpt import find_checkpoint
-from ..isp.bayer import bayer2rggb, rggb2bayer
+from ..isp.bayer import rggb2bayer
 from ..models.unets import load_model
-from ..pipeline.denoiser import VSTDenoiser
+from ..pipeline.denoiser import BM3DVSTDenoiser, VSTDenoiser
 from ..pipeline.engine import PipelineConfig, YONDEngine
+from ..pipeline.estnet import EstNet
 from ..vst.lut import BiasLUT
 
 EST_ARCH = {"name": "est_UNet", "in_nc": 4, "out_nc": 2, "nf": 16,
@@ -143,8 +144,7 @@ def build_parser():
                     help="with --heldout: comma-separated substring "
                          "filter on scene names (probe runs, not a gate)")
     ap.add_argument("--denoiser", default="net", choices=["net", "bm3d"],
-                    help="'bm3d' = the native BM3D in VST space (not "
-                         "ported yet)")
+                    help="'bm3d' = the host BM3D in VST space")
     return ap
 
 
@@ -163,37 +163,14 @@ def parse_args(argv=None):
     return args
 
 
-class EstNet:
-    """The est_UNet scalar estimator as the engine's est_net: raw bayer
-    [N, H, W] -> (K, sigma) in [0, 1] units, the mean over the crops.
-    Counts its calls and keeps its outputs."""
-
-    def __init__(self, model, device):
-        self.model = model
-        self.device = device
-        self.calls = 0
-        self.outputs = []
-
-    @torch.no_grad()
-    def __call__(self, raw):
-        x = bayer2rggb(torch.as_tensor(raw, dtype=torch.float32,
-                                       device=self.device))
-        if x.ndim == 3:
-            x = x[None]
-        out = self.model(torch.clamp(x, 0.0, 1.0))
-        out = out.mean(dim=0) if out.ndim == 2 else out
-        out = out.float().cpu().numpy()
-        self.calls += 1
-        self.outputs.append(out)
-        return out
-
-
 def build_denoiser(args):
-    """The VSTDenoiser of the flags (net from the committed checkpoint)."""
+    """The denoiser of the flags: the host BM3D in VST space with
+    --denoiser bm3d, else the VSTDenoiser of the net from the committed
+    checkpoint."""
     if args.denoiser == "bm3d":
-        raise NotImplementedError(
-            "--denoiser bm3d needs the host C++ BM3D, which is not ported "
-            "yet (ROADMAP item 7)")
+        log("denoiser: native BM3D (VST space)")
+        return BM3DVSTDenoiser(bias_corr="pre", vst_type="exact",
+                               device=args.device)
     arch = {"name": args.arch, "guided": True, "in_nc": 4, "out_nc": 4,
             "nf": args.nf, "nframes": 1, "res": True, "norm": True}
     if args.out_k is not None:

@@ -4,27 +4,34 @@ the GPU (port of yondx/cli/yond.py:32-284, the --input path).
     python -m yondx_torch.cli.yond -f runfiles/YOND/ANY_simple+full_pre_grumix.yml \
         --input frame.npy --output dn.npy
 
-The runfile's `arch` and checkpoint build the net, a VSTDenoiser with
-the pipeline block's refine / sigma_corr extras, the committed bias LUT
-and a YONDEngine; the frame then runs self NLE -> tiled denoise ->
-collab NLE -> tiled second pass (when the rescue gate fires). Runs on
-`--device` ("cuda" by default; JAX's --cpu means --device cpu). Without
---input the runfile's eval/test mode runs the SIDD/DND/ELD harnesses,
-which are not ported yet.
+The runfile's `arch` and checkpoint build the net (guided, or unguided
+as UNetSeeInDark, the 'unetn' denoiser), each `est_*` block a
+noise-estimation net the engine's est_type 'pge' calls from
+`iter_denoise`, the denoiser (a VSTDenoiser with the pipeline block's
+refine / sigma_corr extras, or with `denoiser_type: bm3d` and the
+pipeline key `allow_experimental_bm3d: true` the host BM3D in VST
+space), the committed bias LUT and a YONDEngine; the frame then runs self
+NLE -> tiled denoise -> collab NLE -> tiled second pass (when the rescue
+gate fires), whatever est_type says, as in JAX. Runs on `--device`
+("cuda" by default; JAX's --cpu means --device cpu). Without --input the
+runfile's eval/test mode runs the SIDD/DND/ELD harnesses, which are not
+ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
+from .. import resolve_device
 from ..config import load_runfile
 from ..core.logging import log
 from ..eval.fullframe import denoise_any
 from ..io.ckpt import find_checkpoint
 from ..models.registry import is_guided
 from ..models.unets import load_model
-from ..pipeline.denoiser import VSTDenoiser
+from ..pipeline.denoiser import BM3DVSTDenoiser, VSTDenoiser
 from ..pipeline.engine import PipelineConfig, YONDEngine
+from ..pipeline.estnet import EstNet
 from ..vst.lut import BiasLUT
 
 
@@ -79,7 +86,7 @@ class YOND:
         if self.parser.mesh:
             raise NotImplementedError(
                 "--mesh (row-sharding over several devices) is not ported "
-                "yet (ROADMAP item 11)")
+                "yet (ROADMAP item 9)")
         self.device = "cpu" if self.parser.cpu else self.parser.device
         self.args = load_runfile(self.parser.runfile, mode=self.parser.mode)
         self.mode = self.args["mode"]
@@ -93,16 +100,6 @@ class YOND:
         os.makedirs(self.sample_dir, exist_ok=True)
         os.makedirs("./logs", exist_ok=True)
         self.logfile = f"./logs/log_{self.method_name}.log"
-        est = [k for k, v in self.args.items()
-               if k.startswith("est_") and isinstance(v, dict)]
-        if est:
-            raise NotImplementedError(
-                f"runfile blocks {est}: the est_* noise-estimation nets "
-                "are not ported yet (ROADMAP item 8)")
-        if self.pipe.denoiser_type.lower() == "bm3d":
-            raise NotImplementedError(
-                "denoiser_type: bm3d is not ported yet (ROADMAP item 7)")
-
         self.model = load_model_params(self.arch, self.model_name,
                                        self.fast_ckpt, device=self.device)
         n = sum(p.numel() for p in self.model.parameters())
@@ -112,19 +109,46 @@ class YOND:
                      f"Parameters:\t{n / 1e6:.2f}M",
                      f"Device:\t{self.device}"):
             log(line, logfile=self.logfile, notime=True)
+        # noise-estimation nets of the est_* blocks, weights from
+        # fast_ckpt/<weights or the block's key>
+        self.est_models = {}
+        for key, est in self.args.items():
+            if not key.startswith("est_") or not isinstance(est, dict):
+                continue
+            emodel = load_model_params(est, est.get("weights", key),
+                                       self.fast_ckpt, device=self.device)
+            self.est_models[key] = EstNet(emodel, resolve_device(self.device))
         ex = self.pipe.extras
-        self.denoiser = VSTDenoiser(
-            self.model, guided=is_guided(self.arch),
-            bias_corr=self.pipe.bias_corr, vst_type=self.pipe.vst_type,
-            refine=bool(ex.get("refine", False)),
-            refine_floor=ex.get("refine_floor", "bucket"),
-            refine_shrink=bool(ex.get("refine_shrink", True)),
-            refine_shrink_lam=float(ex.get("refine_shrink_lam", 1.0)),
-            refine_shrink_full_alpha=float(
-                ex.get("refine_shrink_full_alpha", 1.0)),
-            refine_shrink_mode=str(ex.get("refine_shrink_mode", "oriented")),
-            sigma_corr=ex.get("sigma_corr"), device=self.device)
+        if self.pipe.denoiser_type.lower() == "bm3d":
+            # the host BM3D is held to an independent numpy oracle of the
+            # published algorithm in the JAX package, not to the pip bm3d
+            # wheel the reference calls: opt in explicitly, as there
+            if not ex.get("allow_experimental_bm3d", False):
+                raise RuntimeError(
+                    "denoiser_type: BM3D is algorithm-validated (vs an "
+                    "independent oracle, tests/test_bm3d_oracle.py) but "
+                    "UNCERTIFIED against the pip bm3d wheel's exact "
+                    "output. Set 'allow_experimental_bm3d: true' in the "
+                    "pipeline block to use it, or use a network denoiser "
+                    "(gru32n/unetn).")
+            self.denoiser = BM3DVSTDenoiser(bias_corr=self.pipe.bias_corr,
+                                            vst_type=self.pipe.vst_type,
+                                            device=self.device)
+        else:
+            self.denoiser = VSTDenoiser(
+                self.model, guided=is_guided(self.arch),
+                bias_corr=self.pipe.bias_corr, vst_type=self.pipe.vst_type,
+                refine=bool(ex.get("refine", False)),
+                refine_floor=ex.get("refine_floor", "bucket"),
+                refine_shrink=bool(ex.get("refine_shrink", True)),
+                refine_shrink_lam=float(ex.get("refine_shrink_lam", 1.0)),
+                refine_shrink_full_alpha=float(
+                    ex.get("refine_shrink_full_alpha", 1.0)),
+                refine_shrink_mode=str(ex.get("refine_shrink_mode",
+                                              "oriented")),
+                sigma_corr=ex.get("sigma_corr"), device=self.device)
         self.engine = YONDEngine(self.denoiser, self.pipe, biaslut=BiasLUT(),
+                                 est_models=self.est_models,
                                  logfile=self.logfile)
 
     def denoise_any(self, path: str, out: str | None = None):
@@ -135,12 +159,12 @@ class YOND:
     def eval(self, limit=None):
         raise NotImplementedError(
             "the eval harnesses (SIDD / DND / ELD / LRID datasets) are not "
-            "ported yet (ROADMAP item 8); pass --input for one frame")
+            "ported yet (ROADMAP item 4); pass --input for one frame")
 
     def benchmark(self, limit=None):
         raise NotImplementedError(
             "the test harnesses (SIDD / DND benchmark submissions) are not "
-            "ported yet (ROADMAP item 8); pass --input for one frame")
+            "ported yet (ROADMAP item 4); pass --input for one frame")
 
 
 def main(argv=None):

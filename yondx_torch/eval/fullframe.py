@@ -25,7 +25,7 @@ def denoise_any(engine, path_or_array, wp: int = 1023, bl: int = 64,
     if mesh is not None:
         raise NotImplementedError(
             "row-sharding a frame over a mesh (--mesh) is not ported yet "
-            "(ROADMAP item 11)")
+            "(ROADMAP item 9)")
     raw = dataload(path_or_array) if isinstance(path_or_array, str) \
         else np.asarray(path_or_array)
     raw = raw.astype(np.float32)

@@ -97,3 +97,58 @@ class GuidedResidualBlock(nn.Module):
         z = z * tk + tb
         z = self.conv2(F.silu(z))
         return z + x
+
+
+class SNRBlock(nn.Module):
+    """Two-scale multiplicative conditioning: shortcut, SiLU-conv, z *
+    sfm1(t), SiLU-conv, z * sfm2(t), +x; each sfm is Linear-SiLU-Linear
+    of the scalar t (flax names sfm{1,2}_{in,out})."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.short_cut = ShortCut(cin, features)
+        self.conv1 = conv3x3(features, features)
+        self.sfm1_in = nn.Linear(1, features)
+        self.sfm1_out = nn.Linear(features, features)
+        self.conv2 = conv3x3(features, features)
+        self.sfm2_in = nn.Linear(1, features)
+        self.sfm2_out = nn.Linear(features, features)
+
+    def _sfm(self, i: int, t):
+        h = getattr(self, f"sfm{i}_in")(t.reshape(-1, 1))
+        return getattr(self, f"sfm{i}_out")(F.silu(h))[:, :, None, None]
+
+    def forward(self, x, t):
+        x = self.short_cut(x)
+        z = self.conv1(F.silu(x)) * self._sfm(1, t)
+        z = self.conv2(F.silu(z)) * self._sfm(2, t)
+        return z + x
+
+
+class ResidualBlockLRelu(nn.Module):
+    """(conv-relu-conv)-LeakyReLU(0.2) + shortcut of the block's input."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.conv1 = conv3x3(cin, features)
+        self.conv2 = conv3x3(features, features)
+        self.short_cut = ShortCut(cin, features)
+
+    def forward(self, x):
+        z = self.conv2(F.relu(self.conv1(x)))
+        return F.leaky_relu(z, 0.2) + self.short_cut(x)
+
+
+class ResBlockSiLU(nn.Module):
+    """shortcut, SiLU-conv, SiLU-conv, +x."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.short_cut = ShortCut(cin, features)
+        self.conv1 = conv3x3(features, features)
+        self.conv2 = conv3x3(features, features)
+
+    def forward(self, x):
+        x = self.short_cut(x)
+        z = self.conv2(F.silu(self.conv1(F.silu(x))))
+        return z + x

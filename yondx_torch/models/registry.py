@@ -16,6 +16,10 @@ from . import comp, unets
 from .convert import flax_shape, params_to_state_dict
 
 MODEL_REGISTRY = {
+    "UNetSeeInDark": unets.UNetSeeInDark,
+    "ResUnet": unets.ResUnet,
+    "ResUnet2": unets.ResUnet2,
+    "SNRnet": unets.SNRnet,
     "GuidedResUnet": unets.GuidedResUnet,
     "GuidedResUnetS2D": unets.GuidedResUnetS2D,
     "EstUnet": unets.EstUnet,

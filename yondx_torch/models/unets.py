@@ -1,7 +1,9 @@
-"""The guided SNR-Nets (port of yondx/models/unets.py): GuidedResUnet,
-the gru32 flagship, and GuidedResUnetS2D, the s2d-packed variant.
+"""The UNet family (port of yondx/models/unets.py): GuidedResUnet, the
+gru32 flagship; GuidedResUnetS2D, the s2d-packed variant; SNRnet, ResUnet
+and ResUnet2 on the same encoder/decoder with other blocks;
+UNetSeeInDark, the plain SID UNet (the 'unetn' denoiser); EstUnet.
 
-Both take and return channels-last [B, H, W, C] tensors like the flax
+All take and return channels-last [B, H, W, C] tensors like the flax
 models; inside they run NCHW (a permuted view, so a channels-last input
 stays channels-last in memory, which is what cuDNN wants on the GPU).
 """
@@ -15,56 +17,67 @@ from torch import nn
 
 from .. import resolve_device
 from ..io.ckpt import load_checkpoint
-from .blocks import (GuidedResidualBlock, StridedDown, UpConvT, conv1x1,
-                     conv3x3, data_inv_normalize, data_normalize)
+from .blocks import (GuidedResidualBlock, ResBlockSiLU, ResidualBlockLRelu,
+                     SNRBlock, StridedDown, UpConvT, conv1x1, conv3x3,
+                     data_inv_normalize, data_normalize)
 from .convert import params_to_state_dict
 
 
 class _GuidedUNetBase(nn.Module):
-    """Encoder/decoder wiring of GuidedResUnet (yondx/models/unets.py:
-    31-83) on NCHW tensors: conv_in -> [block, stride-2 conv] x4 ->
-    bottleneck block -> [2x2 deconv, skip concat, block] x4 -> 1x1 out,
-    with the residual add and per-sample max norm options."""
+    """Encoder/decoder wiring of GuidedResUnet, SNRnet, ResUnet and
+    ResUnet2 (yondx/models/unets.py:31-83) on NCHW tensors: conv_in ->
+    [block, stride-2 conv] x4 -> bottleneck block -> [2x2 deconv, skip
+    concat, block] x4 -> 1x1 out, with the residual add and per-sample
+    max norm options. block_cls(cin, features) is called as block(z, t)
+    when guided, else block(z)."""
 
-    def __init__(self, args: Dict[str, Any], in_lrelu_slope: float = 0.01):
+    def __init__(self, args: Dict[str, Any], block_cls=GuidedResidualBlock,
+                 guided: bool = True, in_lrelu_slope: float = 0.01):
         super().__init__()
         nf = args["nf"]
         self.res = args.get("res", False)
         self.norm = args.get("norm", False)
+        self.guided = guided
         self.in_lrelu_slope = in_lrelu_slope
         self.conv_in = conv3x3(args.get("in_nc", 4), nf)
         feats = [nf, nf * 2, nf * 4, nf * 8]
         cin = nf
         for i, f in enumerate(feats):
-            setattr(self, f"conv{i + 1}", GuidedResidualBlock(cin, f))
+            setattr(self, f"conv{i + 1}", block_cls(cin, f))
             nxt = feats[i + 1] if i + 1 < len(feats) else nf * 16
             setattr(self, f"pool{i + 1}", StridedDown(f, nxt))
             cin = nxt
-        self.conv5 = GuidedResidualBlock(cin, nf * 16)
+        self.conv5 = block_cls(cin, nf * 16)
         cin = nf * 16
         for i, f in enumerate([nf * 8, nf * 4, nf * 2, nf]):
             setattr(self, f"upv{6 + i}", UpConvT(cin, f))
-            setattr(self, f"conv{6 + i}", GuidedResidualBlock(2 * f, f))
+            setattr(self, f"conv{6 + i}", block_cls(2 * f, f))
             cin = f
         self.conv10 = conv1x1(nf, args["out_nc"])
 
-    def forward(self, x, t):
+    def forward(self, x, t=None):
         lb = ub = None
         if self.norm:
             x, lb, ub = data_normalize(x)
-            t = t / (ub - lb).reshape(-1)
+            if t is not None:
+                t = t / (ub - lb).reshape(-1)
         inp = x
+
+        def block(name, z):
+            b = getattr(self, name)
+            return b(z, t) if self.guided else b(z)
+
         h = F.leaky_relu(self.conv_in(x), self.in_lrelu_slope)
         skips = []
         for i in range(1, 5):
-            h = getattr(self, f"conv{i}")(h, t)
+            h = block(f"conv{i}", h)
             skips.append(h)
             h = getattr(self, f"pool{i}")(h)
-        h = self.conv5(h, t)
+        h = block("conv5", h)
         for i in range(4):
             h = getattr(self, f"upv{6 + i}")(h)
             h = torch.cat([h, skips[-1 - i]], dim=1)
-            h = getattr(self, f"conv{6 + i}")(h, t)
+            h = block(f"conv{6 + i}", h)
         out = self.conv10(h)
         if self.res:
             out = out + inp[:, :4]
@@ -77,9 +90,11 @@ class GuidedResUnet(nn.Module):
     """The gru32 flagship SNR-Net (nf=32: 11.17M parameters). Its body
     is the submodule `unet`, as in flax, so weights map by path."""
 
+    block_cls = GuidedResidualBlock
+
     def __init__(self, args: Dict[str, Any]):
         super().__init__()
-        self.unet = _GuidedUNetBase(args)
+        self.unet = _GuidedUNetBase(args, self.block_cls)
 
     def forward(self, x, t):
         """x: [B, H, W, C] channels-last, t: [B] guidance -> [B, H, W, C]."""
@@ -165,6 +180,88 @@ class GuidedResUnetS2D(nn.Module):
             tin = torch.cat([out, inp[:, :self.out_nc]], dim=1)
             th = F.leaky_relu(self.tail_1(tin), 0.01)
             out = out + self.tail_2(th)
+        if self.norm:
+            out = data_inv_normalize(out, lb, ub)
+        return out.permute(0, 2, 3, 1)
+
+
+class SNRnet(GuidedResUnet):
+    """SNRBlock-bodied guided UNet (yondx/models/unets.py:206)."""
+
+    block_cls = SNRBlock
+
+
+class ResUnet(nn.Module):
+    """ResidualBlockLRelu-bodied unguided UNet, LeakyReLU(0.2) after
+    conv_in (yondx/models/unets.py:217); body `unet`."""
+
+    block_cls = ResidualBlockLRelu
+
+    def __init__(self, args: Dict[str, Any]):
+        super().__init__()
+        self.unet = _GuidedUNetBase(args, self.block_cls, False,
+                                    in_lrelu_slope=0.2)
+
+    def forward(self, x, t=None):
+        """x: [B, H, W, C] channels-last (t is ignored) -> [B, H, W, C]."""
+        return self.unet(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class ResUnet2(ResUnet):
+    """ResBlockSiLU-bodied unguided UNet (yondx/models/unets.py:230)."""
+
+    block_cls = ResBlockSiLU
+
+
+class UNetSeeInDark(nn.Module):
+    """The SID UNet (yondx/models/unets.py:242-283): double 3x3 convs with
+    LeakyReLU(0.2), 2x2 max pool, 2x2 transposed-conv up, skip concat,
+    1x1 head conv10_1; residual add and per-sample max norm options. Its
+    module names (conv1_1 ... conv10_1, upv6 ...) sit at the top level,
+    as in flax."""
+
+    def __init__(self, args: Dict[str, Any]):
+        super().__init__()
+        nf = args["nf"]
+        self.res = args.get("res", False)
+        self.norm = args.get("norm", False)
+        cin = args.get("in_nc", 4)
+        for i, f in enumerate([nf, nf * 2, nf * 4, nf * 8, nf * 16]):
+            setattr(self, f"conv{i + 1}_1", conv3x3(cin, f))
+            setattr(self, f"conv{i + 1}_2", conv3x3(f, f))
+            cin = f
+        for i, f in enumerate([nf * 8, nf * 4, nf * 2, nf]):
+            setattr(self, f"upv{6 + i}", UpConvT(cin, f))
+            setattr(self, f"conv{6 + i}_1", conv3x3(2 * f, f))
+            setattr(self, f"conv{6 + i}_2", conv3x3(f, f))
+            cin = f
+        self.conv10_1 = conv1x1(nf, args["out_nc"])
+
+    def _dconv(self, h, i: int):
+        h = F.leaky_relu(getattr(self, f"conv{i}_1")(h), 0.2)
+        return F.leaky_relu(getattr(self, f"conv{i}_2")(h), 0.2)
+
+    def forward(self, x, t=None):
+        """x: [B, H, W, C] channels-last (t is ignored) -> [B, H, W, C]."""
+        x = x.permute(0, 3, 1, 2)
+        lb = ub = None
+        if self.norm:
+            x, lb, ub = data_normalize(x)
+        inp = x
+        h = x
+        skips = []
+        for i in range(1, 5):
+            h = self._dconv(h, i)
+            skips.append(h)
+            h = F.max_pool2d(h, 2, 2)
+        h = self._dconv(h, 5)
+        for i in range(4):
+            h = getattr(self, f"upv{6 + i}")(h)
+            h = torch.cat([h, skips[-1 - i]], dim=1)
+            h = self._dconv(h, 6 + i)
+        out = self.conv10_1(h)
+        if self.res:
+            out = out + inp[:, :4]
         if self.norm:
             out = data_inv_normalize(out, lb, ub)
         return out.permute(0, 2, 3, 1)

@@ -1,10 +1,11 @@
 """VST denoisers and the adaptive guidance scale (port of
-yondx/pipeline/denoiser.py:54-237,281-310).
+yondx/pipeline/denoiser.py:54-310).
 
 VSTDenoiser: scale -> VST -> bias subtraction ('pre') -> normalize by
 [VST(0), VST(scale)] -> SNR-Net guided by t = nsr * sigma_corr -> optional
-Wiener refine -> inverse VST -> rescale. SimpleDenoiser: clamp -> net ->
-clamp on packed planes.
+Wiener refine -> inverse VST -> rescale. BM3DVSTDenoiser: the same VST
+around the host BM3D, normalized by the VST output's own min/max.
+SimpleDenoiser: clamp -> net -> clamp on packed planes.
 
 The blind per-frame sigma_corr rule: low-noise scenes keep 1.03,
 mid-noise 1.08, high-noise 1.00; heavy clipping with agreeing MAD and
@@ -13,16 +14,19 @@ docs/sigma_corr_blind_r5.json).
 """
 from __future__ import annotations
 
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..core.tiling import pad_to_multiple, unpad
 from ..isp.bayer import bayer2rggb, rggb2bayer
 from ..nle.robust import mad_self_estimate
-from ..vst.lut import cheb_fit_curve, lookup_bias_curve_cheb
+from ..vst.lut import (cheb_fit_curve, lookup_bias_curve,
+                       lookup_bias_curve_cheb)
 from ..vst.vst import inverse_vst, vst
 from .refine import wiener_refine
 
@@ -113,7 +117,7 @@ class VSTDenoiser:
             raise NotImplementedError(
                 "fbi=True needs the FBI_Net blind-spot model of "
                 "models/comp.py, which is not ported yet "
-                "(ROADMAP item 9)")
+                "(ROADMAP item 6)")
         self.model = model
         self.guided = guided
         self.bias_corr = bias_corr
@@ -200,6 +204,57 @@ class VSTDenoiser:
                                                            np.float32)),
                              self._scalar(K), self._scalar(sigma),
                              self._scalar(scale))[0]
+
+
+class BM3DVSTDenoiser:
+    """Host BM3D in VST space (yondx/pipeline/denoiser.py:239-280): scale
+    -> VST -> bias subtraction by the curve's gather ('pre') ->
+    normalize by the VST output's own min/max over the whole batch ->
+    BM3D of each crop at sigma = nsr on the host (`native.bm3d`) ->
+    un-normalize -> inverse VST (exact only without a bias correction)
+    -> rescale and clip. Everything but BM3D runs on `device`; the
+    normalized batch is copied to the host once and the result back
+    once. The crops' BM3D calls run on a thread pool (each call is
+    independent, so the result is the serial one). `host_s` accumulates
+    the seconds spent in BM3D."""
+
+    def __init__(self, *, bias_corr: Optional[str] = "pre",
+                 vst_type: str = "exact", device=None):
+        self.bias_corr = bias_corr
+        self.exact_inverse = bias_corr is None and vst_type == "exact"
+        self.model = None
+        self.pad_base = 1
+        self.device = resolve_device(device)
+        self.host_s = 0.0
+
+    def __call__(self, lr_bayer, curve, K, sigma, scale):
+        return self.denoise_pair(lr_bayer, curve, K, sigma, scale)[0]
+
+    @torch.no_grad()
+    def denoise_pair(self, lr_bayer, curve, K, sigma, scale, corr=None):
+        """-> (output, output): BM3D has no raw net output apart from its
+        result; corr (a net's guidance scale) does not apply."""
+        K, sigma, scale = float(K), float(sigma), float(scale)
+        x, single = _bayer_batch(lr_bayer, self.device)
+        xs = bayer2rggb(x) * scale
+        z = vst(xs, sigma, gain=K)
+        if self.bias_corr == "pre":
+            c = torch.as_tensor(np.asarray(curve, np.float32),
+                                device=self.device)
+            z = z - lookup_bias_curve(torch.clamp(xs, min=0.0), c, K)
+        lower, upper = float(z.min()), float(z.max())
+        nsr = 1.0 / max(upper - lower, 1e-8)
+        zn = ((z - lower) * nsr).cpu().numpy()
+        t = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=zn.shape[0]) as pool:
+            out = np.stack(list(pool.map(lambda b: native.bm3d(zn[b], nsr),
+                                         range(zn.shape[0]))))
+        self.host_s += time.perf_counter() - t
+        z = torch.from_numpy(out).to(self.device) * (upper - lower) + lower
+        xd = inverse_vst(z, sigma, gain=K, exact=self.exact_inverse)
+        bayer = rggb2bayer(torch.clamp(xd / scale, 0.0, 1.0))
+        out = bayer[0] if single else bayer
+        return out, out
 
 
 class SimpleDenoiser:

@@ -15,6 +15,8 @@ Crops are a leading batch dim [N, H, W] (bayer).
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -30,11 +32,6 @@ from .denoiser import SimpleDenoiser
 from .policy import (DEFAULT_FLOOR_FRAC, DEFAULT_POLICY, DEFAULT_TOL,
                      combine_rounds, reg_agreement)
 from .runner import TiledRunner
-
-_ITEM8 = ("needs precomputed estimate files (or, for 'pge', an est_net in "
-          "est_models), which the port has not ported yet (ROADMAP item "
-          "8)")
-
 
 @dataclasses.dataclass
 class PipelineConfig:
@@ -67,11 +64,13 @@ class PipelineConfig:
 class YONDEngine:
     """Orchestrates NLE + denoise rounds for one scene.
 
-    denoiser: VSTDenoiser (its device is the engine's); pipe:
-    PipelineConfig; biaslut: BiasLUT (default: the committed table);
-    est_models: optional {'est_net': callable(lr) -> (K, sigma)} for
-    est_type 'pge' (the est_UNet scalar estimator; lr is the [N, H, W]
-    bayer tensor on the engine's device).
+    denoiser: VSTDenoiser or BM3DVSTDenoiser (its device is the
+    engine's); pipe: PipelineConfig; biaslut: BiasLUT (default: the
+    committed table); est_models: optional {'est_net': callable(lr) ->
+    (beta1, sigma)} for est_type 'pge' (the est_UNet scalar estimator, in
+    [0, 1] units; lr is the [N, H, W] bayer tensor on the engine's
+    device). Without an est_net, est_types 'cal_est', 'foi', 'liu', 'zou'
+    and 'pge' read precomputed estimates from files (_file_based_est).
     """
 
     def __init__(self, denoiser, pipe: PipelineConfig,
@@ -111,8 +110,39 @@ class YONDEngine:
         return float(b1), float(b2)
 
     def _file_based_est(self, data, img_id: int, p) -> tuple:
-        raise NotImplementedError(f"est_type {self.pipe.est_type!r} "
-                                  + _ITEM8)
+        """Precomputed estimates (yondx/pipeline/engine.py:111-145):
+        'cal_est' (or a pipeline cal_est path) -> the pkl record's
+        sfrn[f"{camera}_{iso:05d}"] point, else its per-camera beta1 /
+        beta2 polynomials at the ISO (camera and ISO from data['name']);
+        'foi'/'liu' -> row img_id of {Foi,Liu}Est_fullPict.mat's
+        return_params; 'zou'/'pge' -> row img_id of Zou_ / PGE_fullPict.npy
+        (pge's second entry is sigma, squared to beta2). The files sit in
+        data['root_dir']/SIDD_Validation_Raw."""
+        pipe = self.pipe
+        root = data.get("root_dir", "")
+        if "cal_est" in pipe.est_type or pipe.cal_est:
+            path = pipe.cal_est or data["cal_est"]
+            with open(path, "rb") as f:
+                record = pickle.load(f)
+            name = data["name"]
+            ct, iso = name.split("_")[2], int(name.split("_")[3])
+            key = f"{ct}_{iso:05d}"
+            if key in record["sfrn"]:
+                return tuple(record["sfrn"][key])
+            return (float(np.poly1d(record["beta1"][ct])(iso)),
+                    float(np.poly1d(record["beta2"][ct])(iso)))
+        base = os.path.join(root, "SIDD_Validation_Raw")
+        if "foi" in pipe.est_type or "liu" in pipe.est_type:
+            import scipy.io as sio
+            tag = "FoiEst" if "foi" in pipe.est_type else "LiuEst"
+            reg = sio.loadmat(os.path.join(
+                base, f"{tag}_fullPict.mat"))["return_params"][img_id]
+            return float(reg[0]), float(reg[1])
+        if "zou" in pipe.est_type:
+            reg = np.load(os.path.join(base, "Zou_fullPict.npy"))[img_id]
+            return float(reg[0]), float(reg[1])
+        reg = np.load(os.path.join(base, "PGE_fullPict.npy"))[img_id]
+        return float(reg[0]), float(reg[1]) ** 2
 
     # ------------------------------------------------------------ denoise
     def _curve(self, p):
@@ -233,8 +263,9 @@ class YONDEngine:
                  ("cal_est", "foi", "liu", "zou", "pge")):
             reg = self._file_based_est(data, img_id, p)
         else:
-            raise NotImplementedError(f"est_type {pipe.est_type!r} "
-                                      + _ITEM8)
+            raise NotImplementedError(
+                f"est_type {pipe.est_type!r} needs precomputed files "
+                "(foi/liu/zou) or an est_net")
         p["gain"] = reg[0] * (p["wp"] - p["bl"])
         p["sigma"] = float(np.sqrt(max(reg[1], 0.0))) * (p["wp"] - p["bl"])
         log(f"Self Est: K={p['gain']:.4f}, b={p['sigma']:.4f} "

@@ -366,7 +366,7 @@ class AWGNTrainer:
     def _dump_temp_sample(self, sample, epoch: int, pf: int):
         """The periodic training triptych (noisy | prediction | GT of the
         first crop, `sample`) needs the ISP renderer, which the port does
-        not have yet (isp/render, ROADMAP item 12): it logs that it
+        not have yet (isp/render, ROADMAP item 7): it logs that it
         skipped, as the JAX package does where cv2 is missing."""
         log(f"sample dump skipped (epoch {epoch // pf * pf:04d}): the ISP "
             "renderer is not ported", logfile=self.logfile)

@@ -143,14 +143,26 @@ def _cheb_static(M: int = CHEB_M):
 _CHEB_POS_NODES, _CHEB_DCT = _cheb_static()
 
 
-def cheb_fit_curve(curve):
-    """Sample the [2177] curve at the Chebyshev nodes -> coefficients [M]."""
-    pos = torch.as_tensor(_CHEB_POS_NODES, device=curve.device)
+def interp_curve(curve, pos):
+    """The [2177] curve linearly interpolated at fractional indices pos."""
     lo = torch.floor(pos).long()
     hi = torch.clamp(lo + 1, max=curve.shape[0] - 1)
     w = pos - lo
-    f = curve[lo] * (1.0 - w) + curve[hi] * w
-    return torch.as_tensor(_CHEB_DCT, device=curve.device) @ f
+    return curve[lo] * (1.0 - w) + curve[hi] * w
+
+
+def lookup_bias_curve(x_dn, curve, K):
+    """Per-pixel bias by a fractional gather of the per-call curve
+    (yondx/vst/lut.py:215-232): x_dn pixel values in DN (>= 0), curve
+    [2177] from `bias_curve_for`, K the shot gain. In VST units."""
+    return interp_curve(curve, frac_index_x(x_dn / K))
+
+
+def cheb_fit_curve(curve):
+    """Sample the [2177] curve at the Chebyshev nodes -> coefficients [M]."""
+    pos = torch.as_tensor(_CHEB_POS_NODES, device=curve.device)
+    return torch.as_tensor(_CHEB_DCT, device=curve.device) @ interp_curve(
+        curve, pos)
 
 
 def lookup_bias_curve_cheb(x_dn, coeffs, K):
