@@ -37,7 +37,18 @@ it, its AWGN recipe (Unet_5to50_norm.yml, 12 steps) and its eval
 anchor, the est_* block of runfiles/YOND/SIDD_pge_pre_grumix.yml through
 engine.iter_denoise card vs CPU and through --input, and the host BM3D
 column `eval_synth --heldout --scene-filter photo --denoiser bm3d` held to
-docs/heldout/r5_bm3d_photo_cpu.json. Every phase prints one
+docs/heldout/r5_bm3d_photo_cpu.json. Phase 13 runs the runfiles' eval
+and test modes through the CLI (`yondx_torch.cli.yond -f <runfile>
+[-m test] [--limit N]`) in a temporary working directory that holds
+numpy-seeded fixtures in each reader's layout at the real datasets'
+shapes: (a) the default SIDD runfile's eval on [40, 32, 256, 256]
+validation blocks, profiled once, (b) its test mode (the npy cache), (c)
+the PGE estimator's runfile on 8 scenes, (d) the ELD runfile with the
+committed 5to50 net on two 4256x2848 SonyA7S2 frames (whole-frame route,
+illuminance alignment), (e) the LRID runfile on a 3472x4624 frame (tiled
+route), (f) the DND submission bundle of 20 boxes of 512 px, written and
+read back, and (g) the first 2 scenes of (a) and boxes of (f) on the CPU
+against the card. Every phase prints one
 line with its elapsed seconds; any failure raises (exit code != 0). The
 last two lines are the kernels' JSON record and the device JSON record.
 With --out, each held-out column's eval_synth JSON is written into DIR.
@@ -46,6 +57,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1346,6 +1358,539 @@ def unetn_phase(noisy, clean, scenes, fp32_peak, peak_key, out_dir) -> dict:
     return rec
 
 
+# 13. the runfiles' eval and test modes -----------------------------------
+SIDD_RUNFILE = "runfiles/YOND/SIDD_simple+full_pre_grumix.yml"
+ELD_RUNFILE = "runfiles/YOND/ELD_simple+full_pre_grumix.yml"
+LRID_RUNFILE = "runfiles/YOND/LRID_simple+full_pre_grumix.yml"
+DND_RUNFILE = "runfiles/YOND/DND_simple+full_pre_grumix.yml"
+# phase 13's fixtures at the real datasets' shapes: SIDD's validation
+# blocks [scenes, crops, 256, 256], ELD's SonyA7S2 frames (12.1 MP, the
+# whole-frame route), LRID's IMX686 frames (16.05 MP, just over the
+# harness's 16 MP tiling threshold), one DND frame with its 20 boxes
+EVAL_SHAPES = {"sidd": (40, 32, 256, 256), "eld": (2848, 4256),
+               "lrid": (3472, 4624), "dnd": (3072, 4096), "dnd_box": 512}
+# PSNR floors (dB) that catch a broken path: the denoised output against
+# each fixture's clean content, about 4-5 dB under the CPU rehearsal of
+# phase 13 at reduced sizes (SIDD 40.05, its PGE runfile 39.83, ELD after
+# the alignment 34.36-34.46, LRID 42.39, DND 39.32; the noisy inputs read
+# 23.1-26.6); PERF.md section 2
+EVAL_FLOORS = {"sidd": 35.0, "sidd_pge": 35.0, "eld": 30.0, "lrid": 37.0,
+               "dnd": 35.0}
+
+
+def _level_frame(H, W, rng):
+    """make_frame's clean content (a 12x16 grid of flat levels in
+    [0.05, 0.75]) at any H x W."""
+    levels = rng.random((12, 16)) * 0.7 + 0.05
+    return levels[(np.arange(H) * 12) // H][:, (np.arange(W) * 16) // W] \
+        .astype(np.float32)
+
+
+def _pg(clean, K, sig, scale, rng):
+    """Poisson-Gaussian noise on clean content in [0, 1] (K and sig in DN
+    of `scale`), back in [0, 1]."""
+    noisy = (K * rng.poisson(clean * (scale / K))
+             + rng.normal(0, sig, clean.shape)) / scale
+    return np.clip(noisy, 0.0, 1.0).astype(np.float32)
+
+
+def sidd_blocks(shape, seed=13):
+    """SIDD-like [scenes, crops, 256, 256] blocks: each scene's crops are
+    256-px windows of make_frame's content set between its 256-px level
+    blocks (so each crop holds four levels), each scene with its own
+    noise, K in [2, 12] and sigma in [2, 16] DN of 959. -> (noisy,
+    clean, per-scene (K, sigma))."""
+    n, crops, size, _ = shape
+    rng = np.random.default_rng(seed)
+    noisy = np.empty(shape, np.float32)
+    clean = np.empty(shape, np.float32)
+    cols = 8
+    rows = -(-crops // cols)
+    H, W = size * (rows + 1), size * (cols + 1)
+    kn = []
+    for s in range(n):
+        frame = _level_frame(H, W, rng)
+        K, sig = rng.uniform(2, 12), rng.uniform(2, 16)
+        kn.append((K, sig))
+        for c in range(crops):
+            y = size // 2 + size * (c // cols)
+            x = size // 2 + size * (c % cols)
+            clean[s, c] = frame[y:y + size, x:x + size]
+        noisy[s] = _pg(clean[s], K, sig, 959.0, rng)
+    return noisy, clean, kn
+
+
+class _Recorder:
+    """Times and regs of every YONDEngine.iter_denoise /
+    iter_denoise_tiled call (each ends in the copy of its result to the
+    host), and the SIDD harnesses run, while active."""
+
+    def __init__(self):
+        from yondx_torch.eval.sidd import SIDDEvalHarness
+        from yondx_torch.pipeline.engine import YONDEngine
+        self.targets = [(YONDEngine, "iter_denoise"),
+                        (YONDEngine, "iter_denoise_tiled"),
+                        (SIDDEvalHarness, "run")]
+        self.calls, self.harnesses = [], []
+
+    def __enter__(self):
+        self.saved = [getattr(cls, name) for cls, name in self.targets]
+        for (cls, name), orig in zip(self.targets, self.saved):
+            def run(obj, *a, _orig=orig, _name=name, **kw):
+                t = time.perf_counter()
+                out = _orig(obj, *a, **kw)
+                if _name == "run":
+                    self.harnesses.append((obj, t, time.perf_counter()))
+                else:
+                    self.calls.append((_name, t, time.perf_counter(),
+                                       out["regs"]))
+                return out
+            setattr(cls, name, run)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), orig in zip(self.targets, self.saved):
+            setattr(cls, name, orig)
+
+
+def _repo(path):
+    return os.path.join(REPO, path)
+
+
+@contextlib.contextmanager
+def _quiet(log):
+    """Send the CLI's and the engine's log lines to the file `log`."""
+    with open(log, "a") as f, contextlib.redirect_stdout(f):
+        yield
+
+
+def run_cli(args, log):
+    """yond.main(args) with its log lines sent to `log`; -> (app, seconds,
+    K1 launches)."""
+    from yondx_torch.cli import yond
+    from yondx_torch.nle import moments
+    moments.reset_launches()
+    t = time.perf_counter()
+    with _quiet(log):
+        app = yond.main(args)
+    if app.device != "cpu":
+        torch.cuda.synchronize()
+    return app, time.perf_counter() - t, moments.LAUNCHES["nle_moments"]
+
+
+def _quiet_call(log, fn, *args):
+    with _quiet(log):
+        return fn(*args)
+
+
+def _metrics(method):
+    import pickle
+    with open(os.path.join("metrics", f"{method}_metrics.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _card_vs_cpu(label, card, cpu, regs_card, regs_cpu, spread, clean):
+    """Phase 7's rule on regs, PSNR within 0.01 dB, at most 1e-4 of the
+    pixels apart by more than 1e-3."""
+    rg, rc = np.array(regs_card), np.array(regs_cpu)
+    allowed = np.maximum(1e-3 * np.abs(rc), spread)
+    diff = np.abs(card - cpu)
+    apart = float(np.mean(diff > 1e-3))
+    pg, pc = psnr(card, clean), psnr(cpu, clean)
+    say(label, f"regs cuda {rg.tolist()} cpu {rc.tolist()}, allowed "
+        f"{allowed.tolist()}; PSNR cuda {pg:.4f} cpu {pc:.4f} dB; output "
+        f"max abs diff {float(diff.max()):.3e}, {apart:.2e} of the pixels "
+        "apart by > 1e-3")
+    if not (np.abs(rg - rc) <= allowed).all() or abs(pg - pc) > 0.01 \
+            or apart > 1e-4:
+        raise AssertionError(f"{label}: card and CPU disagree")
+
+
+def _shift_spread(engine, items, p):
+    """The card's regs spread under a +-1e-6 shift of each input."""
+    out = []
+    for data in items:
+        base = np.array(engine.iter_denoise(dict(data), dict(p))["regs"])
+        out.append(np.max([np.abs(np.array(engine.iter_denoise(
+            dict(data, lr=data["lr"] + s), dict(p))["regs"]) - base)
+            for s in (1e-6, -1e-6)], axis=0))
+    return np.stack(out)
+
+
+def _ssim_f64(a, b):
+    """MATLAB SSIM of [N, H, W] stacks in float64 numpy, each crop's mean
+    map meaned over the stack."""
+    g = np.exp(-((np.arange(11) - 5) ** 2) / 4.5)
+    g /= g.sum()
+
+    def filt(m):
+        H, W = m.shape[-2:]
+        r = sum(g[k] * m[..., :, k:k + W - 10] for k in range(11))
+        return sum(g[k] * r[..., k:k + H - 10, :] for k in range(11))
+
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    mu1, mu2 = filt(a), filt(b)
+    s1, s2 = filt(a * a) - mu1 ** 2, filt(b * b) - mu2 ** 2
+    s12 = filt(a * b) - mu1 * mu2
+    c1, c2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
+    return float(np.mean((2 * mu1 * mu2 + c1) * (2 * s12 + c2)
+                         / ((mu1 ** 2 + mu2 ** 2 + c1) * (s1 + s2 + c2))))
+
+
+def ssim_threads_check(noisy, clean) -> None:
+    """The SIDD harness's scoring on the card with cuDNN's TF32 at torch's
+    default (on), from 4 threads at once as its pool runs it: bit-equal
+    to one thread, within 1e-5 of float64, the flag left as it was."""
+    from concurrent.futures import ThreadPoolExecutor
+    from yondx_torch.eval.metrics import matlab_ssim
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    pairs = [(torch.as_tensor(n * 255, device="cuda"),
+              torch.as_tensor(c * 255, device="cuda"))
+             for n, c in zip(noisy, clean)]
+
+    def score(pair):
+        return float(matlab_ssim(*pair))
+
+    serial = [score(pr) for pr in pairs]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        threaded = list(pool.map(score, pairs * 4))
+    ref = [_ssim_f64(n * 255, c * 255) for n, c in zip(noisy, clean)]
+    err = max(abs(a - b) for a, b in zip(serial, ref))
+    after = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    say("eval (a)", f"SSIM of {len(pairs)} scenes on the card with "
+        f"(cudnn, matmul) TF32 {flags}: 4 threads bit-equal to one "
+        f"{threaded == serial * 4}; max |SSIM - float64| {err:.3e}; flags "
+        f"after {after}")
+    if threaded != serial * 4 or err > 1e-5 or after != flags:
+        raise AssertionError("SSIM scoring under threads or TF32 wrong")
+
+
+def sidd_cases(tmp, log) -> dict:
+    """(a) SIDD eval, (g) its first 2 scenes on the CPU, (b) SIDD test,
+    (c) the PGE estimator's runfile; -> K1 launches per route."""
+    import scipy.io as sio
+    shape = EVAL_SHAPES["sidd"]
+    n = shape[0]
+    t = time.perf_counter()
+    noisy, clean, kn = sidd_blocks(shape)
+    val = os.path.join(tmp, "SIDD", "SIDD_Validation_Raw")
+    os.makedirs(val)
+    for key, arr in (("ValidationNoisyBlocksRaw", noisy),
+                     ("ValidationGtBlocksRaw", clean),
+                     ("BenchmarkNoisyBlocksRaw", noisy)):
+        sio.savemat(os.path.join(val, f"{key}.mat"), {key: arr})
+    ks, sigs = np.array(kn).T
+    say("eval (a)", f"SIDD fixture {list(shape)} float32 "
+        f"({noisy.nbytes / 1e6:.1f} MB a file, K {ks.min():.2f}-"
+        f"{ks.max():.2f}, sigma {sigs.min():.2f}-{sigs.max():.2f} DN of "
+        f"959) made and written in {time.perf_counter() - t:.2f} s")
+    ssim_threads_check(noisy[:4], clean[:4])
+    rec = {}
+    # (a) the default runfile's eval mode, as a user types it: the CLI
+    # sets its own precision
+    with _Recorder() as r:
+        app, wall, launches = run_cli(["-f", _repo(SIDD_RUNFILE)], log)
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the yond CLI left TF32 on")
+    h, h0, h1 = r.harnesses[0]
+    times = [c[2] - c[1] for c in r.calls]
+    loop = h1 - r.calls[0][1]
+    tail = h1 - r.calls[-1][2]
+    method = app.method_name
+    m = _metrics(method)
+    from yondx_torch.eval.sidd import crop_means
+    p_noisy, s_noisy = crop_means(noisy.reshape((-1,) + shape[2:]),
+                                  clean.reshape((-1,) + shape[2:]),
+                                  app.engine.device)
+    its = len(h.psnrs)
+    say("eval (a)", f"yond -f {SIDD_RUNFILE}: {n} scenes of "
+        f"{list(shape[1:])} in {wall:.2f} s of command (model and .mat "
+        f"loads included); loop {loop:.2f} s: {n / loop:.2f} scenes/s "
+        f"({(n - 1) / (h1 - r.calls[1][1]):.2f} past the first scene), "
+        f"{1e3 * float(np.mean(times)):.2f} ms a scene's iter_denoise "
+        f"(median {1e3 * float(np.median(times)):.2f}, first "
+        f"{1e3 * times[0]:.2f}); scoring (on the engine's device) "
+        f"{h.score_s:.2f} "
+        f"thread-s on 4 threads = {100 * h.score_s / loop:.1f}% of the "
+        f"loop, unhidden tail {tail:.2f} s ({100 * tail / loop:.1f}%); "
+        f"noisy PSNR {p_noisy:.2f} dB SSIM {s_noisy:.4f}; " + ", ".join(
+            f"{'Iter' + str(i) if i < its - 1 else 'last'} PSNR "
+            f"{h.psnrs[i].avg:.2f} SSIM {h.ssims[i].avg:.4f}"
+            for i in range(its)) + f"; K1 launches {launches}")
+    if launches != 3 * n:
+        raise AssertionError(f"SIDD eval: K1 launched {launches} times, "
+                             f"expected {3 * n}")
+    if sorted(m) != [f"{i:04d}" for i in range(n)] or \
+            h.psnrs[-1].avg < EVAL_FLOORS["sidd"]:
+        raise AssertionError("SIDD eval: metrics missing or PSNR under "
+                             f"{EVAL_FLOORS['sidd']} dB")
+    rec["sidd_eval"] = launches
+    p = {"wp": 1023, "bl": 64, "ratio": 1.0, "scale": 959.0, "gain": 1.0,
+         "sigma": 0.0, "cfa": [[1, 2], [2, 3]]}
+    items = [{"name": f"{i:04d}", "lr": noisy[i], "cfa": [[1, 2], [2, 3]]}
+             for i in range(2)]
+    with _quiet(log):
+        app.engine.iter_denoise(dict(items[0]), dict(p))
+    profile_run("eval (a) profile", lambda: _quiet_call(
+        log, app.engine.iter_denoise, dict(items[0]), dict(p)))
+    # (g) the first 2 scenes on the CPU, in a directory of their own
+    card = np.stack([np.load(os.path.join("npy", method, f"{i:03d}.npy"))
+                     for i in range(2)])
+    with _quiet(log):
+        spread = _shift_spread(app.engine, items, p)
+    cpu_dir = os.path.join(tmp, "cpu")
+    os.makedirs(cpu_dir)
+    for name in ("SIDD", "checkpoints"):
+        os.symlink(os.path.join(tmp, name), os.path.join(cpu_dir, name))
+    os.chdir(cpu_dir)
+    try:
+        _, cpu_s, _ = run_cli(["-f", _repo(SIDD_RUNFILE), "--device",
+                               "cpu", "--limit", "2"], log)
+        cpu = np.stack([np.load(os.path.join("npy", method, f"{i:03d}.npy"))
+                        for i in range(2)])
+        m_cpu = _metrics(method)
+    finally:
+        os.chdir(tmp)
+    say("eval (g)", f"the first 2 SIDD scenes on the CPU in {cpu_s:.2f} s")
+    _card_vs_cpu("eval (g) SIDD", card[:, -1], cpu[:, -1],
+                 [m[f"{i:04d}"]["reg"] for i in range(2)],
+                 [m_cpu[f"{i:04d}"]["reg"] for i in range(2)], spread,
+                 clean[:2])
+    for i in range(2):
+        if abs(m[f"{i:04d}"]["psnr"][-1] - m_cpu[f"{i:04d}"]["psnr"][-1]) \
+                > 0.01:
+            raise AssertionError("eval (g): the pickles' PSNR differ")
+    # (b) test mode: the benchmark blocks, the npy cache, no scores
+    import shutil
+    shutil.rmtree(os.path.join("npy", method))
+    with _Recorder() as r:
+        _, wall, launches = run_cli(["-f", _repo(SIDD_RUNFILE), "-m",
+                                     "test"], log)
+    loop = r.harnesses[0][2] - r.calls[0][1]
+    steady = (n - 1) / (r.harnesses[0][2] - r.calls[1][1])
+    cache = sorted(os.listdir(os.path.join("npy", method)))
+    ok = cache == [f"{i:03d}.npy" for i in range(n)]
+    for name in cache:
+        a = np.load(os.path.join("npy", method, name), mmap_mode="r")
+        ok = ok and a.shape == (2,) + shape[1:] and a.dtype == np.float32 \
+            and bool(np.isfinite(a[-1]).all())
+    say("eval (b)", f"yond -m test: {n} scenes in {wall:.2f} s of command, "
+        f"loop {loop:.2f} s: {n / loop:.2f} scenes/s ({steady:.2f} past "
+        f"the first scene); npy cache "
+        f"{len(cache)} files of {[2] + list(shape[1:])}, complete {ok}; K1 "
+        f"launches {launches}")
+    if not ok or launches != 3 * n:
+        raise AssertionError("SIDD test: npy cache incomplete or K1 count "
+                             "wrong")
+    rec["sidd_test"] = launches
+    # (c) the PGE estimator's runfile on the first 8 scenes
+    nc = min(8, n)
+    with _Recorder() as r:
+        app_c, wall, launches = run_cli(
+            ["-f", _repo(PGE_RUNFILE), "--limit", str(nc)], log)
+    hc = r.harnesses[0][0]
+    mc = _metrics(app_c.method_name)
+    last_a = [m[f"{i:04d}"]["psnr"][-1] for i in range(nc)]
+    last_c = [mc[f"{i:04d}"]["psnr"][-1] for i in range(nc)]
+    calls = app_c.est_models["est_net"].calls
+    say("eval (c)", f"yond -f {PGE_RUNFILE} --limit {nc}: {wall:.2f} s of "
+        f"command; last PSNR {hc.psnrs[-1].avg:.2f} dB against (a)'s "
+        f"{float(np.mean(last_a)):.2f} on the same {nc} scenes (per scene "
+        f"{[round(c - a, 2) for a, c in zip(last_a, last_c)]} dB); est net "
+        f"calls {calls}; K1 launches {launches}")
+    if launches != 2 * nc or calls != nc or \
+            hc.psnrs[-1].avg < EVAL_FLOORS["sidd_pge"]:
+        raise AssertionError("SIDD pge: K1 launches, est net calls or PSNR "
+                             "wrong")
+    rec["sidd_pge"] = launches
+    return rec
+
+
+def _write_frames(d, frames, dn_scale, bl):
+    os.makedirs(d)
+    for name, frame in frames.items():
+        np.save(os.path.join(d, name),
+                np.round(frame * dn_scale + bl).astype(np.uint16))
+
+
+def fullframe_cases(tmp, log) -> dict:
+    """(d) ELD's whole-frame route with the illuminance alignment, (e)
+    LRID's tiled route; -> K1 launches per route."""
+    rng = np.random.default_rng(17)
+    rec = {}
+    # (d) ELD: GT ids 1 and 16, noisy ids 4 and 9 at 0.8x their exposure
+    H, W = EVAL_SHAPES["eld"]
+    t = time.perf_counter()
+    scale = 16383 - 512
+    clean = _level_frame(H, W, rng)
+    frames = {"IMG_0001.npy": clean, "IMG_0016.npy": clean}
+    for i in (4, 9):
+        frames[f"IMG_{i:04d}.npy"] = _pg(0.8 * clean, 150.0, 200.0, scale,
+                                         rng)
+    _write_frames(os.path.join(tmp, "ELD", "SonyA7S2", "scene-1"), frames,
+                  scale, 512)
+    with open(os.path.join(REPO, ELD_RUNFILE)) as f:
+        text = f.read()
+    eld = os.path.join(tmp, "ELD_simple+full_pre_grumix_5to50.yml")
+    with open(eld, "w") as f:
+        f.write(text.replace("Gaussian_GRU_mix_5to50_norm_noclip",
+                             "Gaussian_GRU_mix_5to50_norm"))
+    say("eval (d)", f"ELD fixture: 4 frames {H}x{W} uint16 (wp 16383, bl "
+        f"512) in {time.perf_counter() - t:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    with _Recorder() as r:
+        app, wall, launches = run_cli(["-f", eld, "--limit", "2"], log)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = _metrics(app.method_name)
+    routes = [c[0] for c in r.calls]
+    ms = [1e3 * (c[2] - c[1]) for c in r.calls]
+    pv = [m[k]["psnr"] for k in sorted(m)]
+    noisy_in = [float(psnr(np.clip(frames[f"IMG_{i:04d}.npy"] / 0.8, 0, 1),
+                           clean)) for i in (4, 9)]
+    say("eval (d)", f"yond -f <ELD runfile with the 5to50 net> --limit 2: "
+        f"{wall:.2f} s of command; routes {routes}; ms a frame "
+        f"{[round(x, 2) for x in ms]}; peak memory {peak:.2f} GiB; PSNR "
+        f"after alignment {[round(x, 2) for x in pv]} dB (noisy scaled by "
+        f"1/0.8: {[round(x, 2) for x in noisy_in]}); K1 launches {launches}")
+    if routes != ["iter_denoise"] * 2 or launches != 6 or \
+            min(pv) < EVAL_FLOORS["eld"]:
+        raise AssertionError("ELD: route, K1 launches or PSNR wrong")
+    rec["eld"] = launches
+    # (e) LRID: one indoor scene, the noisy frame first, the GT last
+    H, W = EVAL_SHAPES["lrid"]
+    t = time.perf_counter()
+    clean = _level_frame(H, W, rng)
+    noisy = _pg(clean, 8.74, 12.81, 959.0, rng)
+    _write_frames(os.path.join(tmp, "LRID", "indoor", "scene-001"),
+                  {"000_noisy.npy": noisy, "001_gt.npy": clean}, 959.0, 64)
+    say("eval (e)", f"LRID fixture: 2 frames {H}x{W} uint16 (wp 1023, bl "
+        f"64) in {time.perf_counter() - t:.2f} s")
+    with _Recorder() as r:
+        app, wall, launches = run_cli(["-f", _repo(LRID_RUNFILE), "--limit",
+                                       "1"], log)
+    m = _metrics(app.method_name)
+    routes = [c[0] for c in r.calls]
+    ms = 1e3 * (r.calls[0][2] - r.calls[0][1])
+    pv = m["scene-001"]["psnr"]
+    say("eval (e)", f"yond -f {LRID_RUNFILE} --limit 1: {wall:.2f} s of "
+        f"command; routes {routes}; {ms:.2f} ms a frame ({H * W / 1e6:.2f} "
+        f"MP, {H * W / 1e3 / ms:.2f} MP/s); PSNR {psnr(noisy, clean):.2f} -> "
+        f"{pv:.2f} dB; K1 launches {launches}")
+    if routes != ["iter_denoise_tiled"] or launches != 3 or \
+            pv < EVAL_FLOORS["lrid"]:
+        raise AssertionError("LRID: route, K1 launches or PSNR wrong")
+    rec["lrid"] = launches
+    return rec
+
+
+class _DNDFrame:
+    """One DND-like frame in [0, 1] (wp 1, bl 0) with its boxes."""
+
+    def __init__(self, noisy, boxes):
+        self.noisy, self.boxes = noisy, boxes
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, i):
+        return {"name": "0001", "lr": self.noisy, "wp": 1, "bl": 0,
+                "ratio": 1.0, "cfa": [[1, 2], [2, 3]], "boxes": self.boxes}
+
+
+def dnd_case(tmp, log) -> dict:
+    """(f) denoise_dnd and bundle_submissions_raw on one frame of 20 boxes
+    of 512 px, the bundle read back with scipy; (g) its first 2 boxes on
+    the CPU; -> K1 launches."""
+    import scipy.io as sio
+    from yondx_torch.cli import yond
+    from yondx_torch.eval.dnd import bundle_submissions_raw, denoise_dnd
+    from yondx_torch.nle import moments
+    H, W = EVAL_SHAPES["dnd"]
+    b = EVAL_SHAPES["dnd_box"]
+    noisy, clean = make_frame(H, W, seed=19)
+    ys = np.linspace(64, H - b - 64, 4).astype(int)
+    xs = np.linspace(64, W - b - 64, 5).astype(int)
+    boxes = np.array([[y + 1, x + 1, y + b, x + b] for y in ys for x in xs],
+                     np.float64)                  # 1-indexed [y0,x0,y1,x1]
+    with _quiet(log):
+        app = yond.YOND(["-f", _repo(DND_RUNFILE)])
+    out_dir = os.path.join("submits", "test", app.method_name)
+    moments.reset_launches()
+    with _Recorder() as r, _quiet(log):
+        t = time.perf_counter()
+        bundled = denoise_dnd(app.engine, _DNDFrame(noisy, boxes), out_dir,
+                              logfile=app.logfile)
+        n = bundle_submissions_raw(bundled)
+        wall = time.perf_counter() - t
+    launches = moments.LAUNCHES["nle_moments"]
+    cells = sio.loadmat(os.path.join(bundled, "0001.mat"))
+    crops = [np.asarray(c) for c in cells["Idenoised"][0]]
+    ok = n == 1 and cells["Idenoised"].shape == (1, 20) and \
+        bool(cells["israw"].squeeze()) and \
+        str(np.squeeze(cells["eval_version"])) == "1.0" and all(
+            c.shape == (b, b) and c.dtype == np.float32 and
+            np.isfinite(c).all() for c in crops)
+    gt = [clean[y:y + b, x:x + b] for y in ys for x in xs]
+    p_in = float(np.mean([psnr(noisy[y:y + b, x:x + b], g)
+                          for (y, x), g in zip(
+                              [(y, x) for y in ys for x in xs], gt)]))
+    p_out = float(np.mean([psnr(c, g) for c, g in zip(crops, gt)]))
+    ms = [1e3 * (c[2] - c[1]) for c in r.calls]
+    say("eval (f)", f"denoise_dnd + bundle_submissions_raw on {H}x{W} "
+        f"with 20 boxes of {b}: {wall:.2f} s, {float(np.mean(ms)):.2f} ms a "
+        f"crop (median {float(np.median(ms)):.2f}); bundle read back {ok}; "
+        f"PSNR {p_in:.2f} -> {p_out:.2f} dB; K1 launches {launches}")
+    if not ok or launches != 60 or p_out < EVAL_FLOORS["dnd"]:
+        raise AssertionError("DND: bundle, K1 launches or PSNR wrong")
+    # (g) the first 2 boxes on the CPU
+    p = {"wp": 1, "bl": 0, "ratio": 1.0, "scale": 1.0, "gain": 1.0,
+         "sigma": 0.0}
+    items = [{"lr": noisy[y:y + b, x:x + b]} for y, x in
+             ((ys[0], xs[0]), (ys[0], xs[1]))]
+    with _quiet(log):
+        spread = _shift_spread(app.engine, items, p)
+        cpu_app = yond.YOND(["-f", _repo(DND_RUNFILE), "--device", "cpu"])
+    with _Recorder() as rc, _quiet(log):
+        cpu_dir = denoise_dnd(cpu_app.engine, _DNDFrame(noisy, boxes[:2]),
+                              os.path.join(tmp, "cpu_dnd"))
+    cpu = np.stack([sio.loadmat(os.path.join(cpu_dir, f"0001_0{k}.mat"))[
+        "Idenoised_crop"] for k in (1, 2)])
+    _card_vs_cpu("eval (g) DND", np.stack(crops[:2]), cpu,
+                 [c[3] for c in r.calls[:2]], [c[3] for c in rc.calls],
+                 spread, np.stack(gt[:2]))
+    return {"dnd": launches}
+
+
+def eval_phase(out_dir=None) -> dict:
+    """Phase 13: the runfiles' eval and test modes through the CLI in a
+    temporary working directory that holds the fixtures (each reader's
+    layout, numpy-seeded content) and a link to checkpoints/. TF32 starts
+    at torch's defaults, as in the process a user starts: the CLI sets
+    its own precision. The CLI's log goes to eval_cli.log (in `out_dir`
+    when given). Returns K1's launches per route."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(os.path.abspath(out_dir or tmp), "eval_cli.log")
+        os.symlink(os.path.join(REPO, "checkpoints"),
+                   os.path.join(tmp, "checkpoints"))
+        os.chdir(tmp)
+        try:
+            for label, fn in (("(a)-(c), (g)", sidd_cases),
+                              ("(d)-(e)", fullframe_cases),
+                              ("(f)-(g)", dnd_case)):
+                t = time.perf_counter()
+                rec.update(fn(tmp, log))
+                say("phase 13", f"{label} in {time.perf_counter() - t:.2f} s")
+        finally:
+            os.chdir(REPO)
+    return rec
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, metavar="DIR",
@@ -1603,6 +2148,9 @@ def main(argv=None) -> dict:
     # 12. the 'unetn' denoiser, the est_* block, the host BM3D ---------------
     phase12 = unetn_phase(noisy, clean, scenes, fp32, peak_key, out_dir)
 
+    # 13. the runfiles' eval and test modes (SIDD, ELD, LRID, DND) ---------
+    phase13 = eval_phase(out_dir)
+
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
         "source": "yondx_torch/csrc/nle_moments.cu",
@@ -1634,7 +2182,11 @@ def main(argv=None) -> dict:
         # with the est net (collab only, 2 a scene), --input with the pge
         # runfile (3), the BM3D photo column (3 a scene), the Unet
         # trainer (0)
-        "phase12": phase12}]}
+        "phase12": phase12,
+        # phase 13's routes: SIDD eval and test (3 a scene), the PGE
+        # runfile (2 a scene), ELD whole frames and the LRID tiled frame
+        # (3 a frame), DND (3 a box)
+        "phase13": phase13}]}
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

@@ -38,6 +38,7 @@ from yondx_torch.nle import robust as t_robust
 from yondx_torch.pipeline.denoiser import SimpleDenoiser, VSTDenoiser
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
 from yondx_torch.vst.lut import BiasLUT
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 GRU32 = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                      "Gaussian",

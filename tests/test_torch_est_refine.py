@@ -33,6 +33,7 @@ from yondx_torch.models.unets import GuidedResUnet, load_model
 from yondx_torch.pipeline import refine as t_refine
 from yondx_torch.pipeline.denoiser import BM3DVSTDenoiser, VSTDenoiser
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 EST_CKPT = os.path.join(REPO, "checkpoints", "Gaussian",
@@ -42,17 +43,6 @@ EST_ARCH = {"name": "est_UNet", "in_nc": 4, "out_nc": 2, "nf": 16,
 NF8 = {"name": "GuidedResUnet", "guided": True, "in_nc": 4, "out_nc": 4,
        "nf": 8, "nframes": 1, "res": True, "norm": True}
 K_TRUE, SIG_TRUE, SCALE = 8.74, 12.81, 959.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Run this module's torch ops on two threads: the suite runs in
-    parallel workers, and torch's default of one thread per core in
-    every worker oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -38,22 +38,13 @@ from yondx_torch.models.comp import est_UNet
 from yondx_torch.models.convert import params_to_state_dict
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
 from yondx_torch.pipeline.estnet import EstNet
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 CKPTS = os.path.join(REPO, "checkpoints", "Gaussian")
 PGE_RUNFILE = os.path.join(REPO, "runfiles", "YOND",
                            "SIDD_pge_pre_grumix.yml")
 K_TRUE, SIG_TRUE, SCALE = 8.74, 12.81, 959.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Run this module's torch ops on two threads: the suite runs in
-    parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bayer(N, H, W, seed, grid=(4, 8)):

@@ -23,6 +23,7 @@ from yondx.vst.lut import BiasLUT as JBiasLUT
 from yondx_torch.models.unets import S2DT16_ARCH, load_guided_s2d
 from yondx_torch.pipeline.fused import make_fused_blind_denoiser as t_make
 from yondx_torch.vst.lut import BiasLUT
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 S2DT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "Gaussian",
@@ -56,22 +57,38 @@ def assert_regs_close(got, ref):
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-3)
 
 
-def _run_both(nets, rggb, **kw):
+def _run_both(nets, rggb, jax_out=None, **kw):
+    """Both packages' fused denoisers on `rggb`; `jax_out` is JAX's
+    (dn, regs) when already computed."""
     model, variables, net = nets
-    fj = j_make(model, variables, JBiasLUT().lut, **kw)
-    dn_j, regs_j = fj(jnp.asarray(rggb), jnp.float32(959.0))
+    if jax_out is None:
+        fj = j_make(model, variables, JBiasLUT().lut, **kw)
+        jax_out = fj(jnp.asarray(rggb), jnp.float32(959.0))
+    dn_j, regs_j = jax_out
     ft = t_make(net, BiasLUT().lut, device="cpu", **kw)
     dn_t, regs_t = ft(torch.from_numpy(rggb.copy()), 959.0)
     return (np.asarray(dn_j), np.asarray(regs_j), dn_t.numpy(),
             regs_t.numpy(), ft)
 
 
+@pytest.fixture(scope="module")
+def jax_product_a(nets):
+    """JAX's product-config denoiser (use_pallas_nle False, its default),
+    compiled once for frame (a), and its (dn, regs) on that frame."""
+    model, variables, _ = nets
+    fj = j_make(model, variables, JBiasLUT().lut, **PRODUCT)
+    rggb = _frame(256, 384, 3)
+    dn, regs = fj(jnp.asarray(rggb), jnp.float32(959.0))
+    return fj, np.asarray(dn), np.asarray(regs)
+
+
 @pytest.mark.parametrize("use_pallas_nle", [True, False])
-def test_slice_matches_jax_unbanded(nets, use_pallas_nle):
+def test_slice_matches_jax_unbanded(nets, jax_product_a, use_pallas_nle):
     """(a) RGGB [1,128,192,4], unbanded NLE."""
     rggb = _frame(256, 384, 3)
     dn_j, regs_j, dn_t, regs_t, ft = _run_both(
-        nets, rggb, use_pallas_nle=use_pallas_nle, **PRODUCT)
+        nets, rggb, None if use_pallas_nle else jax_product_a[1:],
+        use_pallas_nle=use_pallas_nle, **PRODUCT)
     assert dn_t.shape == rggb.shape and regs_t.shape == (2, 2)
     assert_regs_close(regs_t, regs_j)
     np.testing.assert_allclose(dn_t, dn_j, atol=2e-4)
@@ -105,16 +122,16 @@ def test_slice_matches_jax_small_frame(nets):
     np.testing.assert_allclose(dn_t, dn_j, atol=2e-4)
 
 
-def test_beta2_moves_under_1e6_shift(nets):
+def test_beta2_moves_under_1e6_shift(nets, jax_product_a):
     """Frame (a), the product config: shifting every pixel by +-1e-6 moves
     beta2 of some round by more than 1e-3 (relative) in the JAX package
     and in the port alike, while both agree on the unshifted frame to
     rtol 1e-3 (the tests above). Card and CPU runs of the port differ by
     rounding of that order, so their regs are held to the spread such
     shifts make (chip_smoke.py), not to a fixed rtol."""
-    model, variables, net = nets
+    _, _, net = nets
+    fj, _, base_j = jax_product_a
     rggb = _frame(256, 384, 3)
-    fj = j_make(model, variables, JBiasLUT().lut, **PRODUCT)
     ft = t_make(net, BiasLUT().lut, device="cpu", **PRODUCT)
 
     def regs_j(x):
@@ -124,7 +141,7 @@ def test_beta2_moves_under_1e6_shift(nets):
         return ft(torch.from_numpy(x.copy()), 959.0)[1].numpy()
 
     for regs in (regs_j, regs_t):
-        base = regs(rggb)
+        base = base_j if regs is regs_j else regs(rggb)
         moves = [np.abs(regs(rggb + np.float32(d)) / base - 1)
                  for d in (1e-6, -1e-6)]
         beta2_move = float(np.max(moves, axis=0)[:, 1].max())

@@ -24,6 +24,7 @@ from yondx.vst.lut import BiasLUT as JBiasLUT
 import yondx_torch.pipeline.fused as t_fused
 from yondx_torch.models.unets import S2DT16_ARCH, load_guided_s2d
 from yondx_torch.vst.lut import BiasLUT
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 S2DT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "Gaussian",

@@ -15,7 +15,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from yondx.data import datasets as j_datasets
 from yondx.data import unprocess as j_unprocess
@@ -35,20 +34,10 @@ from yondx_torch.models.convert import params_to_state_dict
 from yondx_torch.models.unets import GuidedResUnet
 from yondx_torch.pipeline.denoiser import VSTDenoiser
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 NF8 = {"name": "GuidedResUnet", "guided": True, "in_nc": 4, "out_nc": 4,
        "nf": 8, "nframes": 1, "res": True, "norm": True}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Run this module's torch ops on two threads: the suite runs in
-    parallel workers, and torch's default of one thread per core in
-    every worker oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _spec(mod, name, size=128, n_crops=1):

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from yondx.nle import boxfilter as j_box
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 SRC = (Path(__file__).resolve().parents[1] / "yondx_torch" / "csrc"
        / "nle_moments.cu")

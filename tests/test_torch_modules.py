@@ -33,6 +33,7 @@ from yondx_torch.pipeline import policy as t_policy
 from yondx_torch.pipeline import refine as t_refine
 from yondx_torch.vst import lut as t_lut
 from yondx_torch.vst import vst as t_vst
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 # yondx.vst re-exports the function `vst` under the module's own name
 j_vst = importlib.import_module("yondx.vst.vst")

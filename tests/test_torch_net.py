@@ -18,6 +18,7 @@ from yondx_torch.io import ckpt as t_ckpt
 from yondx_torch.models.convert import params_to_state_dict
 from yondx_torch.models.unets import (S2DT16_ARCH, GuidedResUnetS2D,
                                       _d2s2, _s2d2, load_guided_s2d)
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 CKPT_DIR = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                         "Gaussian")

@@ -37,18 +37,9 @@ from yondx_torch.data import noise as t_noise
 from yondx_torch.data import raw_dataset as t_raw
 from yondx_torch.data import video as t_video
 from yondx_torch.train.draws import FieldSource
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 JAX_FIELD = FieldSource("jax", "cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Run this module's torch ops on two threads: the suite runs in
-    parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(got, want, rel=1e-6):

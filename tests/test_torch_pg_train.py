@@ -71,6 +71,7 @@ from yondx_torch.nle.threshold import adaptive_threshold_score2, linspace_f32
 from yondx_torch.train.draws import FieldSource
 from yondx_torch.train.pg_trainer import (PGEstTrainer, eval_pge,
                                           pge_eval_batches)
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 EST_CKPT = os.path.join(REPO, "checkpoints", "Gaussian",
@@ -84,16 +85,6 @@ TINY = {"pge": {"name": "est_UNet", "in_nc": 4, "out_nc": 2, "nf": 4,
                 "nframes": 1, "k": 19}}
 LR = 1e-3
 JAX_FIELD = FieldSource("jax", "cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Run this module's torch ops on two threads: the suite runs in
-    parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -172,12 +163,23 @@ def test_stdfilt_and_score2_threshold():
 @pytest.mark.parametrize("pge,use_type", [(True, "std"), (False, "std"),
                                           (False, "var"), (True, "var")])
 def test_est_unet_forward_matches_flax(pge, use_type):
+    """The params are numpy draws at flax's fan-in scale in the tree of
+    `jax.eval_shape(model.init)` (flax's own init is held bit for bit by
+    test_flax_default_init_bit_equal; run eagerly here it took ~30 s)."""
     arch = {"name": "EstUnet", "in_nc": 12, "out_nc": 4, "nf": 8,
             "depth": 3, "pge": pge, "use_type": use_type}
-    x = np.random.default_rng(3).random((2, 32, 32, 12), np.float32)
+    rng = np.random.default_rng(3)
+    x = rng.random((2, 32, 32, 12), np.float32)
     jm = j_build(arch)
-    params = j_init(jm, jax.random.PRNGKey(5), x.shape, guided=False)
-    want = np.asarray(jm.apply(params, jnp.asarray(x)))
+
+    def draw(path, leaf):
+        fan_in = int(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 else 1
+        std = np.sqrt(1.0 / fan_in) if path[-1].key == "kernel" else 1e-2
+        return (rng.standard_normal(leaf.shape) * std).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(draw, jax.eval_shape(
+        jm.init, jax.random.PRNGKey(5), jnp.zeros(x.shape)))
+    want = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
     net = build_model(arch)
     net.load_state_dict(params_to_state_dict(_np_tree(params)), strict=True)
     with torch.no_grad():

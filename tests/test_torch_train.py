@@ -57,6 +57,7 @@ from yondx_torch.train import losses as t_losses
 from yondx_torch.train import s2d_port as t_s2d_port
 from yondx_torch.train import schedule as t_schedule
 from yondx_torch.train.ckpt import load_checkpoint, save_checkpoint
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 GAUSSIAN = sorted(glob.glob(os.path.join(REPO, "runfiles", "Gaussian",
@@ -67,16 +68,6 @@ GRU4 = {"name": "GuidedResUnet", "guided": True, "in_nc": 4, "out_nc": 4,
 S2D8 = {"name": "GuidedResUnetS2D", "guided": True, "in_nc": 4,
         "out_nc": 4, "nf": 8, "nframes": 1, "res": True, "norm": True,
         "out_k": 3}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Run this module's torch ops on two threads: the suite runs in
-    parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _args(tmp, arch=GRU4, patch=32, command="", **extra):

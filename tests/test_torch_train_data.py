@@ -43,6 +43,7 @@ from yondx_torch.data import noise as t_noise
 from yondx_torch.data import unprocess as t_unprocess
 from yondx_torch.models.convert import params_to_state_dict
 from yondx_torch.train.draws import FieldSource, eval_keys, train_keys
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 GAUSSIAN = sorted(glob.glob(os.path.join(REPO, "runfiles", "Gaussian",

@@ -46,6 +46,7 @@ from yondx_torch.models.registry import (MODEL_REGISTRY, build_model,
                                          init_params, is_guided)
 from yondx_torch.models.unets import load_model
 from yondx_torch.train import AWGNTrainer
+from torch_test_util import _two_torch_threads  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 CKPTS = os.path.join(REPO, "checkpoints", "Gaussian")
@@ -56,16 +57,6 @@ UNET_RUNFILE = os.path.join(REPO, "runfiles", "Gaussian",
 ANY_RUNFILE = os.path.join(REPO, "runfiles", "YOND",
                            "ANY_simple+full_pre_grumix.yml")
 NETS = ("UNetSeeInDark", "ResUnet", "ResUnet2", "SNRnet")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Run this module's torch ops on two threads: the suite runs in
-    parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _arch(name, nf=8):

@@ -1,8 +1,11 @@
-"""`python -m yondx_torch.cli.yond`: blind raw denoising of one frame on
-the GPU (port of yondx/cli/yond.py:32-284, the --input path).
+"""`python -m yondx_torch.cli.yond`: blind raw denoising on the GPU (port
+of yondx/cli/yond.py): one frame with --input, or the runfile's eval /
+test mode over a dataset.
 
     python -m yondx_torch.cli.yond -f runfiles/YOND/ANY_simple+full_pre_grumix.yml \
         --input frame.npy --output dn.npy
+    python -m yondx_torch.cli.yond -f runfiles/YOND/SIDD_simple+full_pre_grumix.yml \
+        [-m eval|test] [--limit N] [--device cuda|cpu]
 
 The runfile's `arch` and checkpoint build the net (guided, or unguided
 as UNetSeeInDark, the 'unetn' denoiser), each `est_*` block a
@@ -13,14 +16,23 @@ pipeline key `allow_experimental_bm3d: true` the host BM3D in VST
 space), the committed bias LUT and a YONDEngine; the frame then runs self
 NLE -> tiled denoise -> collab NLE -> tiled second pass (when the rescue
 gate fires), whatever est_type says, as in JAX. Runs on `--device`
-("cuda" by default; JAX's --cpu means --device cpu). Without --input the
-runfile's eval/test mode runs the SIDD/DND/ELD harnesses, which are not
-ported yet.
+("cuda" by default; JAX's --cpu means --device cpu).
+
+Without --input the runfile's mode runs over the dataset of its
+`dst_{mode}` block (`root_dir` relative to the working directory, in the
+reader's layout): 'eval' scores SIDD crop blocks with `eval/sidd.py`
+(iter_denoise per scene) and ELD / LRID / DND frames with
+`eval/fullframe.py` (whole or tiled by frame size; ELD aligned to the GT
+exposure), writing ./metrics/{method}_metrics.pkl; 'test' writes the
+SIDD benchmark's npy cache (npy/{method}/) or DND's submission bundle
+(submits/test/{method}/bundled/).
 """
 from __future__ import annotations
 
 import argparse
 import os
+
+import torch
 
 from .. import resolve_device
 from ..config import load_runfile
@@ -95,11 +107,20 @@ class YOND:
         self.model_name = self.args["model_name"]
         self.method_name = self.args["method_name"]
         self.fast_ckpt = self.args["fast_ckpt"]
+        self.save_plot = not self.parser.nofig
         self.sample_dir = os.path.join(self.args.get("result_dir", "images"),
                                        self.method_name)
         os.makedirs(self.sample_dir, exist_ok=True)
         os.makedirs("./logs", exist_ok=True)
+        os.makedirs("./metrics", exist_ok=True)
         self.logfile = f"./logs/log_{self.method_name}.log"
+        # the runfiles' nets and the scoring run in float32: no TF32 in
+        # cuDNN's convolutions (on by torch's default) or in matmuls. Set
+        # once, before any work, and never toggled later: the flags are
+        # process-wide, and the SIDD harness scores on threads beside the
+        # engine
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
         self.model = load_model_params(self.arch, self.model_name,
                                        self.fast_ckpt, device=self.device)
         n = sum(p.numel() for p in self.model.parameters())
@@ -107,7 +128,8 @@ class YOND:
                      f"Model Name:\t{self.model_name}",
                      f"Architecture:\t{self.arch['name']}",
                      f"Parameters:\t{n / 1e6:.2f}M",
-                     f"Device:\t{self.device}"):
+                     f"Device:\t{self.device}",
+                     "Precision:\tfloat32 (TF32 off)"):
             log(line, logfile=self.logfile, notime=True)
         # noise-estimation nets of the est_* blocks, weights from
         # fast_ckpt/<weights or the block's key>
@@ -156,15 +178,65 @@ class YOND:
                            bl=self.parser.bl, ratio=self.parser.ratio,
                            tile=self.parser.tile, out_path=out)
 
-    def eval(self, limit=None):
+    def _dataset(self, mode):
+        dst = self.args.get(f"dst_{mode}", self.args.get("dst", {}))
+        name = dst.get("dataset", "")
+        root = dst.get("root_dir", "")
+        if name == "SIDD_Dataset":
+            from ..data.datasets import SIDDValDataset
+            return SIDDValDataset(root, mode=dst.get("mode", mode))
+        if name == "LRID_Dataset":
+            from ..data.eval_datasets import LRIDDataset
+            return LRIDDataset(root, subset=dst.get("subset", "indoor"))
+        if name == "DND_Dataset":
+            from ..data.eval_datasets import DNDDataset
+            return DNDDataset(root)
+        if name in ("ELD_Full_Dataset", "ELD_Dataset"):
+            from ..data.eval_datasets import ELDDataset
+            return ELDDataset(root,
+                              camera_suffix=tuple(dst.get(
+                                  "camera_suffix", ("SonyA7S2", ".ARW"))))
         raise NotImplementedError(
-            "the eval harnesses (SIDD / DND / ELD / LRID datasets) are not "
-            "ported yet (ROADMAP item 4); pass --input for one frame")
+            f"dataset {name!r}: provide data under {root!r} or use "
+            "the synthetic self-test via bench.py")
+
+    def _sidd_harness(self, mode):
+        from ..eval.sidd import SIDDEvalHarness
+        return SIDDEvalHarness(
+            self.engine, self._dataset(mode), self.method_name,
+            max_iter=self.pipe.max_iter, save_plot=self.save_plot,
+            sample_dir=self.sample_dir, logfile=self.logfile)
+
+    def eval(self, limit=None):
+        """The runfile's eval set: SIDD crop blocks, else whole frames
+        (ELD, LRID, DND); returns the harness's mean metrics."""
+        limit = limit or self.parser.limit
+        if self.pipe.data_type == "SIDD":
+            return self._sidd_harness("eval").run(limit=limit)
+        from ..eval.fullframe import FullFrameHarness
+        harness = FullFrameHarness(
+            self.engine, self._dataset("eval"), self.method_name,
+            tile=int(self.pipe.extras.get("tile", 0)),
+            halo=int(self.pipe.extras.get("halo", 64)),
+            illum_correct=(self.pipe.data_type == "ELD"),
+            logfile=self.logfile)
+        return harness.run(limit=limit)
 
     def benchmark(self, limit=None):
-        raise NotImplementedError(
-            "the test harnesses (SIDD / DND benchmark submissions) are not "
-            "ported yet (ROADMAP item 4); pass --input for one frame")
+        """The runfile's test set: DND's submission bundle, else the SIDD
+        benchmark blocks (npy cache, no scores)."""
+        limit = limit or self.parser.limit
+        if self.pipe.data_type == "DND":
+            from ..eval.dnd import bundle_submissions_raw, denoise_dnd
+            out_dir = os.path.join("submits", self.mode, self.method_name)
+            bundled = denoise_dnd(self.engine, self._dataset("test"),
+                                  out_dir, limit=limit,
+                                  logfile=self.logfile)
+            n = bundle_submissions_raw(bundled)
+            log(f"DND submission bundle: {n} images under {bundled}",
+                logfile=self.logfile)
+            return bundled
+        return self._sidd_harness("test").run(limit=limit)
 
 
 def main(argv=None):
@@ -177,6 +249,7 @@ def main(argv=None):
         return app
     if "eval" in app.mode:
         app.eval()
+        log(f"Metrics saved in ./metrics/{app.method_name}_metrics.pkl")
     if "test" in app.mode:
         app.benchmark()
     return app

@@ -1,12 +1,14 @@
 """Metric meters with persisted history (port of yondx/core/meters.py,
-copied): `AverageMeter` with its pkl epoch history; the curve figure is
-drawn only where matplotlib imports."""
+copied): `AverageMeter` with its pkl epoch history (the curve figure is
+drawn only where matplotlib imports) and `MetricsRecorder`, the
+per-scene record the eval harnesses write to
+metrics/{method}_metrics.pkl."""
 from __future__ import annotations
 
 import os
 import pickle
 import threading
-from typing import List
+from typing import Dict, List
 
 
 class AverageMeter:
@@ -64,3 +66,28 @@ class AverageMeter:
         fmtstr = "{name} {val" + self.fmt + "} ({avg" + self.fmt + "})"
         return fmtstr.format(name=self.name, val=self.val, avg=self.avg)
 
+
+class MetricsRecorder:
+    """Per-scene metric dict persisted to a pickle; an existing file is
+    read back, so a rerun adds to it."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.data: Dict[str, dict] = {}
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                self.data = pickle.load(f)
+
+    def __getitem__(self, k):
+        return self.data[k]
+
+    def __setitem__(self, k, v):
+        self.data[k] = v
+
+    def __contains__(self, k):
+        return k in self.data
+
+    def save(self):
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        with open(self.path, "wb") as f:
+            pickle.dump(self.data, f)

@@ -11,6 +11,8 @@ where the unprocessing and the noise run (train/trainer.py).
   the JAX package; the whole set is built once at construction into an
   .npy disk cache and memory-mapped after that. `python -m
   yondx_torch.cli.eval_synth --content texture` builds its scenes from it;
+- `SIDDValDataset`: the SIDD validation / benchmark crop blocks the
+  eval and test modes of `python -m yondx_torch.cli.yond` read;
 - `BatchLoader`: shuffled drop-last batches, a thread pool prefetching in
   submission order (the order of the single-threaded loader); `to_unit`
   moves a batch onto the device.
@@ -266,6 +268,65 @@ def _bilinear_resize(g: np.ndarray, S: int) -> np.ndarray:
     d = g[y0 + 1][:, x0 + 1]
     return ((1 - wy) * ((1 - wx) * a + wx * b)
             + wy * ((1 - wx) * c + wx * d)).astype(np.float32)
+
+
+class SIDDValDataset:
+    """SIDD validation (mode 'eval', with GT) or benchmark (mode 'test',
+    no `hr`) crop blocks, the official layout under root_dir:
+      SIDD_Validation_Raw/{ValidationNoisyBlocksRaw,ValidationGtBlocksRaw,
+      BenchmarkNoisyBlocksRaw}.mat ([scenes, 32, 256, 256] in [0, 1]);
+      SIDD_Benchmark_Data/<scene>/<scene>_{METADATA,NOISY}_010.MAT
+    (optional: scene names, metadata and the CFA; without it scene i is
+    named f"{i:04d}" and read as RGGB)."""
+
+    def __init__(self, root_dir: str, mode: str = "eval"):
+        import scipy.io as sio
+        from ..isp.metadata import read_sidd_metadata
+        self.mode = mode
+        val = os.path.join(root_dir, "SIDD_Validation_Raw")
+        if mode == "eval":
+            self.lr = sio.loadmat(
+                os.path.join(val, "ValidationNoisyBlocksRaw.mat")
+            )["ValidationNoisyBlocksRaw"]
+            self.hr = sio.loadmat(
+                os.path.join(val, "ValidationGtBlocksRaw.mat")
+            )["ValidationGtBlocksRaw"]
+        else:
+            self.lr = sio.loadmat(
+                os.path.join(val, "BenchmarkNoisyBlocksRaw.mat")
+            )["BenchmarkNoisyBlocksRaw"]
+            self.hr = None
+        bench = os.path.join(root_dir, "SIDD_Benchmark_Data")
+        self.names = sorted(os.listdir(bench)) if os.path.isdir(bench) else []
+        metas = sorted(glob.glob(os.path.join(bench, "*", "*_METADATA_*.MAT")))
+        lrs = sorted(glob.glob(os.path.join(bench, "*", "*_NOISY_*.MAT")))
+        self.infos = []
+        for i in range(self.lr.shape[0]):
+            meta = None
+            if i < len(metas):
+                meta = read_sidd_metadata(sio.loadmat(metas[i]))
+            self.infos.append({
+                "name": self.names[i] if i < len(self.names) else f"{i:04d}",
+                "metadata": meta,
+                "lr_path": lrs[i] if i < len(lrs) else None,
+            })
+
+    def __len__(self):
+        return self.lr.shape[0]
+
+    def __getitem__(self, idx: int) -> dict:
+        info = self.infos[idx]
+        meta = info["metadata"]
+        data = {
+            "name": info["name"],
+            "lr": self.lr[idx].astype(np.float32),
+            "meta": meta,
+            "lr_path_full": info["lr_path"],
+            "cfa": meta["bayer_2by2"] if meta else [[1, 2], [2, 3]],
+        }
+        if self.hr is not None:
+            data["hr"] = self.hr[idx].astype(np.float32)
+        return data
 
 
 def to_unit(batch, device) -> torch.Tensor:

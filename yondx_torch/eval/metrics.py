@@ -2,8 +2,10 @@
 
 - `psnr`: skimage-compatible peak SNR at data_range 1 (raw crops);
 - `matlab_ssim`: the MATLAB-equivalent SSIM: 11x11 Gaussian window
-  sigma 1.5 as a valid `F.conv2d` in float32 with TF32 off, C1 =
-  (0.01*255)^2, C2 = (0.03*255)^2, inputs scaled to [0, 255];
+  sigma 1.5, valid, as separable float32 multiply-adds (no convolution
+  library, so no process-wide TF32 flag reaches the window sums, and
+  threads may score concurrently), C1 = (0.01*255)^2, C2 =
+  (0.03*255)^2, inputs scaled to [0, 255];
 - `quality_assess`: the PSNR + SSIM dict;
 - `cal_kld`: forward KL between pixel-error histograms (numpy).
 
@@ -13,7 +15,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def _tensor(x, device=None) -> torch.Tensor:
@@ -22,48 +23,42 @@ def _tensor(x, device=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
-def psnr(pred, target, data_range: float = 1.0):
-    """Mean PSNR over every element (float32 0-d tensor)."""
+def psnr(pred, target, data_range: float = 1.0, dim=None):
+    """PSNR of the mean squared error over every element (float32 0-d
+    tensor), or over `dim` only (one PSNR per remaining index, e.g.
+    dim=(-2, -1) for each crop of a stack)."""
     pred = _tensor(pred)
     target = _tensor(target, pred.device)
-    mse = torch.mean((pred - target) ** 2)
+    d2 = (pred - target) ** 2
+    mse = torch.mean(d2) if dim is None else torch.mean(d2, dim=dim)
     return 10.0 * torch.log10(data_range ** 2 / torch.clamp(mse, min=1e-20))
 
 
-def _gaussian_kernel_11():
-    """cv2.getGaussianKernel(11, 1.5) as an outer product."""
+def _gaussian_taps_11():
+    """cv2.getGaussianKernel(11, 1.5): the window is their outer product."""
     x = np.arange(11) - 5
     k = np.exp(-(x ** 2) / (2 * 1.5 ** 2))
-    k = k / k.sum()
-    return (k[:, None] * k[None, :]).astype(np.float32)
+    return [float(v) for v in (k / k.sum()).astype(np.float32)]
 
 
-_WIN = _gaussian_kernel_11()
+_TAPS = _gaussian_taps_11()
 
 
-def _filt_valid(img, win):
-    """Valid 2-D correlation of [..., H, W] with an 11x11 window."""
-    lead = img.shape[:-2]
+def _filt_valid(img):
+    """Valid 2-D correlation of [..., H, W] with the 11x11 window: the
+    rows' 11 taps, then the columns', each a float32 multiply-add."""
     H, W = img.shape[-2:]
-    y = F.conv2d(img.reshape(-1, 1, H, W), win)
-    return y.reshape(lead + (H - 10, W - 10))
+    rows = sum(g * img[..., :, k:k + W - 10] for k, g in enumerate(_TAPS))
+    return sum(g * rows[..., k:k + H - 10, :] for k, g in enumerate(_TAPS))
 
 
 def _ssim_single(img1, img2):
     C1 = (0.01 * 255) ** 2
     C2 = (0.03 * 255) ** 2
-    win = torch.as_tensor(_WIN, device=img1.device)[None, None]
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False       # fp32 window sums
-    try:
-        mu1 = _filt_valid(img1, win)
-        mu2 = _filt_valid(img2, win)
-        mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-        s1 = _filt_valid(img1 * img1, win) - mu1_sq
-        s2 = _filt_valid(img2 * img2, win) - mu2_sq
-        s12 = _filt_valid(img1 * img2, win) - mu1_mu2
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+    mu1, mu2, e11, e22, e12 = _filt_valid(torch.stack(
+        [img1, img2, img1 * img1, img2 * img2, img1 * img2]))
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    s1, s2, s12 = e11 - mu1_sq, e22 - mu2_sq, e12 - mu1_mu2
     num = (2 * mu1_mu2 + C1) * (2 * s12 + C2)
     den = (mu1_sq + mu2_sq + C1) * (s1 + s2 + C2)
     return torch.mean(num / den, dim=(-2, -1))
