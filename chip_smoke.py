@@ -48,7 +48,19 @@ committed 5to50 net on two 4256x2848 SonyA7S2 frames (whole-frame route,
 illuminance alignment), (e) the LRID runfile on a 3472x4624 frame (tiled
 route), (f) the DND submission bundle of 20 boxes of 512 px, written and
 read back, and (g) the first 2 scenes of (a) and boxes of (f) on the CPU
-against the card. Every phase prints one
+against the card. Phase 14 drives every option of the fused entry on the
+3072x4096 frame: scripts/bench_matrix.py's matrix (the committed gru32
+Gaussian_GRU_mix_5to50_norm in fp32 and bf16; sort and hist thresholds
+with the conv margins, hist with the pallas margins) and the product
+configuration under each other iteration policy, without the bias
+correction, with two collab rounds and at k = 19 and 41, each held to
+phase 5's floors and a crop of each card vs CPU; then K1 against its
+plain version at k = 19 and 41. Phase 15 rebuilds the sg-extension
+table and three 16-column blocks of the 2-D bias table on the host,
+bit-equal to the committed ones, and holds the host bias curve to the
+device curve. Phase 16 runs each net of the comparison zoo card vs CPU
+and VSTDenoiser(fbi=True) with FBI_Net nf 64 x 8 layers (random
+weights) in tiles of 1024 over the frame. Every phase prints one
 line with its elapsed seconds; any failure raises (exit code != 0). The
 last two lines are the kernels' JSON record and the device JSON record.
 With --out, each held-out column's eval_synth JSON is written into DIR.
@@ -1891,6 +1903,367 @@ def eval_phase(out_dir=None) -> dict:
     return rec
 
 
+# 14. every option of the fused entry -------------------------------------
+S2DT16_CKPT = os.path.join(CKPTS,
+                           "Gaussian_GRUS2DT_mix_1to50c_norm_best_model.ckpt")
+GRU5_CKPT = os.path.join(CKPTS, "Gaussian_GRU_mix_5to50_norm_best_model.ckpt")
+# scripts/bench_matrix.py's threshold and NLE settings, with its defaults
+# otherwise (guided, max_iter 1, no refine, sigma_corr 1.03, rescue,
+# robust NLE, banded NLE)
+MATRIX = (("sort, conv margins", {"th_impl": "sort"}),
+          ("hist, conv margins", {"th_impl": "hist"}),
+          ("hist, pallas margins", {"th_impl": "hist",
+                                    "use_pallas_nle": True}))
+# the product configuration of phase 5 with one option changed each
+PRODUCT = {"guided": True, "max_iter": 1, "refine": True,
+           "sigma_corr": "adaptive"}
+OPTIONS = (("iter_policy=replace", {"iter_policy": "replace"}),
+           ("iter_policy=avg", {"iter_policy": "avg"}),
+           ("iter_policy=guard", {"iter_policy": "guard"}),
+           ("iter_policy=avg_guard", {"iter_policy": "avg_guard"}),
+           ("bias_corr=None", {"bias_corr": None}),
+           ("max_iter=2", {"max_iter": 2}),
+           ("k=19", {"k": 19}),
+           ("k=41", {"k": 41}))
+PHASE14_REPS = 5        # timed frames of each configuration
+
+
+def _run_frames(fn, rggb, reps):
+    """One warm-up, then `reps` timed frames (host clock around each
+    synchronised call): (median s, the last (dn, regs), K1 launches,
+    second passes) of the timed frames."""
+    from yondx_torch.nle import moments
+    fn(rggb, 959.0)
+    torch.cuda.synchronize()
+    moments.reset_launches()
+    fn.stats["second_passes"] = 0
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn(rggb, 959.0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return (float(np.median(times)), out, moments.LAUNCHES["nle_moments"],
+            fn.stats["second_passes"])
+
+
+def fused_case(label, make, net, noisy, clean, reps, kw, launches_per):
+    """One fused-entry configuration on the 3072x4096 frame: ms/frame
+    (median of `reps`), MP/s, PSNR in -> out, K_est, second passes and K1
+    launches, held to phase 5's floors (gain >= 10 dB, K_est within 10% of
+    8.74) and to `launches_per` K1 launches a frame. Returns (regs, the
+    case's record)."""
+    from yondx_torch.isp.bayer import bayer2rggb, rggb2bayer
+    fn = make(net, **kw)
+    rggb = bayer2rggb(torch.from_numpy(noisy).cuda())[None]
+    dt, (dn, regs), launches, second = _run_frames(fn, rggb, reps)
+    out = rggb2bayer(dn[0]).float().cpu().numpy()
+    regs = regs.cpu().numpy()
+    H, W = noisy.shape
+    p_in, p_out = psnr(noisy, clean), psnr(out, clean)
+    k_est = float(regs[0, 0] * 959)
+    say("options", f"{label}: {dt * 1e3:.2f} ms/frame, "
+        f"{H * W / 1e6 / dt:.2f} MP/s (median of {reps}); PSNR {p_in:.2f} "
+        f"-> {p_out:.2f} dB; K_est {k_est:.3f}; second passes {second}/"
+        f"{reps}; K1 launches {launches}; regs {regs.tolist()}")
+    if not np.isfinite(out).all():
+        raise AssertionError(f"{label}: output is not finite")
+    if p_out < p_in + 10.0:
+        raise AssertionError(f"{label}: PSNR gain {p_out - p_in:.2f} dB < 10")
+    if abs(k_est - 8.74) > 0.1 * 8.74:
+        raise AssertionError(f"{label}: K_est {k_est:.3f} not within 10% "
+                             "of 8.74")
+    if launches != launches_per * reps:
+        raise AssertionError(f"{label}: K1 launched {launches} times in "
+                             f"{reps} frames, expected {launches_per * reps}")
+    return regs, {"ms": dt * 1e3, "launches": launches,
+                  "second_passes": second}
+
+
+def option_card_vs_cpu(label, nets, kw, noisy, clean):
+    """The option on a 512x768 crop of the frame, fp32 on the card and on
+    the CPU, by phase 9e's rule (_card_vs_cpu; the card's +-1e-6 shift
+    spread for the regs)."""
+    from yondx_torch.isp.bayer import bayer2rggb, rggb2bayer
+    from yondx_torch.pipeline.fused import make_fused_blind_denoiser
+    from yondx_torch.vst.lut import BiasLUT
+    r, c = noisy.shape[0] // 6 * 2, noisy.shape[1] // 6 * 2
+    crop, cclean = noisy[r:r + 512, c:c + 768], clean[r:r + 512, c:c + 768]
+    rggb = bayer2rggb(torch.from_numpy(np.ascontiguousarray(crop)))[None]
+    res, fns = {}, {}
+    for d in ("cuda", "cpu"):
+        fns[d] = make_fused_blind_denoiser(nets[d], BiasLUT().lut, device=d,
+                                           **kw)
+        dn, regs = fns[d](rggb, 959.0)
+        res[d] = (rggb2bayer(dn[0]).cpu().numpy(), regs.cpu().numpy())
+    spread = np.max([np.abs(fns["cuda"](rggb + s, 959.0)[1].cpu().numpy()
+                            - res["cuda"][1]) for s in (1e-6, -1e-6)],
+                    axis=0)
+    _card_vs_cpu(f"options cuda vs cpu, {label}", res["cuda"][0],
+                 res["cpu"][0], res["cuda"][1], res["cpu"][1], spread,
+                 cclean)
+
+
+def k1_at_k(k, flush, bw, fp32) -> dict:
+    """K1 against its plain version at window k (texture pre-blur k // 3 *
+    2 + 1) in its three flavours on the product path's band view
+    [1, 2, 256, 2048, 4] (phase 3's tolerances), and each flavour timed
+    (cold L2, an event pair around each synchronised call) beside its
+    bound."""
+    from yondx_torch.nle import moments
+    from yondx_torch.pipeline.fused import _take_bands
+    inner = k // 3 * 2 + 1
+    g = torch.Generator(device="cuda").manual_seed(k)
+    frame = torch.rand((1, 1536, 2048, 4), generator=g, device="cuda") * 0.7
+    x = _take_bands(frame, 6, 2, 3, 256)
+    tol = {"mean": 1e-5, "var": 1e-6, "tex": 5e-5}
+    rec = {}
+    for flavour, (texture, mean, ops) in K1_FLAVOURS.items():
+        got = moments.nle_moments(x, k, inner, texture, mean)
+        torch.cuda.synchronize()
+        ref = moments.nle_moments_plain(x, k, inner, texture, mean)
+        errs = {key: float((gv - rv).abs().max())
+                for key, gv, rv in zip(("mean", "var", "tex"), got, ref)
+                if gv is not None}
+        for key, e in errs.items():
+            if e > tol[key] or not bool(torch.isfinite(
+                    got[("mean", "var", "tex").index(key)]).all()):
+                raise AssertionError(f"K1 k={k} {flavour}: {key} err {e:.3e}"
+                                     f" > {tol[key]:.0e}")
+        ms = cuda_ms(lambda: moments.nle_moments(x, k, inner, texture, mean),
+                     20, flush)
+        nbytes = 4 * x.numel() * (2 + texture + mean)
+        t_bytes, t_ops = nbytes / bw * 1e3, x.numel() * ops / fp32 * 1e3
+        rec[flavour] = {"ms": ms, "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops
+                        else "operations", "max_abs_err": max(errs.values())}
+    plain = cuda_ms(lambda: moments.nle_moments_plain(x, k, inner), 10, flush)
+    rec["self"]["plain_ms"] = plain
+    say("K1 at k", f"k={k} (inner {inner}), bands [1,2,256,2048,4]: " +
+        "; ".join(f"{f} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+                  f"{r['bound_by']} ({r['ms'] / r['bound_ms']:.1f}x), max "
+                  f"abs err {r['max_abs_err']:.3e}" for f, r in rec.items())
+        + f"; plain (self) {plain:.4f} ms")
+    return rec
+
+
+def options_phase(noisy, clean, bw, fp32) -> dict:
+    """Phase 14: scripts/bench_matrix.py's matrix on the 3072x4096 frame
+    (the committed gru32 Gaussian_GRU_mix_5to50_norm in fp32 and bf16,
+    sort / hist threshold with the conv margins, hist with the pallas
+    margins; hist regs within rtol 0.05 of sort, as
+    tests/test_fused.py::test_hist_threshold_close_to_sort), then phase
+    5's product configuration (s2dt16 bf16) under each other iteration
+    policy, without the bias correction (exact inverse), with two collab
+    rounds and at k = 19 and 41; each option on a crop card vs CPU
+    (fp32), and K1 against its plain version at k = 19 and 41. TF32 off.
+    Returns the record of K1's launches and times."""
+    from yondx_torch.models.unets import GRU32_ARCH, load_guided_s2d, \
+        load_model
+    from yondx_torch.pipeline.fused import make_fused_blind_denoiser
+    from yondx_torch.vst.lut import BiasLUT
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lut = BiasLUT().lut
+    reps = PHASE14_REPS
+    rec = {"matrix": {}, "options": {}}
+
+    def make(compute_dtype):
+        def f(net, **kw):
+            return make_fused_blind_denoiser(
+                net, lut, compute_dtype=compute_dtype, device="cuda", **kw)
+        return f
+
+    gru_cpu = load_model(GRU32_ARCH, GRU5_CKPT, device="cpu")
+    for tag, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        net = load_model(GRU32_ARCH, GRU5_CKPT, device="cuda",
+                         dtype=dtype or torch.float32)
+        regs = {}
+        for label, kw in MATRIX:
+            kw = {"guided": True, "max_iter": 1, **kw}
+            regs[label], rec["matrix"][f"{tag}/{label}"] = fused_case(
+                f"gru32 {tag}, {label}", make(dtype), net, noisy, clean,
+                reps, kw, 3)
+            if tag == "fp32":
+                option_card_vs_cpu(f"gru32, {label}",
+                                   {"cuda": net, "cpu": gru_cpu}, kw, noisy,
+                                   clean)
+        base = regs[MATRIX[0][0]]
+        for label, _ in MATRIX[1:]:
+            rel = np.abs(regs[label] - base) / np.abs(base)
+            say("options", f"gru32 {tag}: {label} regs against sort, "
+                f"relative {rel.tolist()} (rtol 0.05, atol 1e-6)")
+            if not np.allclose(regs[label], base, rtol=0.05, atol=1e-6):
+                raise AssertionError(f"gru32 {tag} {label}: regs not within "
+                                     "rtol 0.05 of sort")
+        del net
+    del gru_cpu
+    s2dt_bf16 = load_guided_s2d(S2DT16_CKPT, device="cuda",
+                                dtype=torch.bfloat16)
+    nets = {d: load_guided_s2d(S2DT16_CKPT, device=d)
+            for d in ("cuda", "cpu")}
+    for label, opt in OPTIONS:
+        kw = {**PRODUCT, **opt}
+        per = 1 + 2 * kw["max_iter"]
+        _, rec["options"][label] = fused_case(
+            f"s2dt16 bf16, {label}", make(torch.bfloat16), s2dt_bf16, noisy,
+            clean, reps, kw, per)
+        option_card_vs_cpu(f"s2dt16, {label}", nets, kw, noisy, clean)
+    del s2dt_bf16, nets
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rec["k_sweep"] = {str(k): k1_at_k(k, scratch.zero_, bw, fp32)
+                      for k in (19, 41)}
+    del scratch
+    return rec
+
+
+# 15. the bias-table builders on the host ---------------------------------
+def builders_phase() -> None:
+    """Phase 15: the whole sg-extension table and three 16-column blocks
+    of the 2-D table (the lowest, a middle and the highest sg), built on
+    the host into a temporary directory and held bit-equal to the
+    committed tables; the host curve `bias_curve_for` against the device
+    curve of the fused path at one sg <= 10 e- and one above (the
+    tolerances of tests/test_fused.py)."""
+    from yondx_torch.pipeline.fused import device_bias_curve
+    from yondx_torch.vst import lut as t_lut
+    committed = np.load(os.path.join(REPO, "checkpoints", "bias_lut_2d.npy"))
+    committed_ext = np.load(os.path.join(REPO, "checkpoints",
+                                         "bias_lut_sgext.npy"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        ext = t_lut.load_sgext_lut(os.path.join(tmp, "bias_lut_2d.npy"))
+        dt = time.perf_counter() - t
+        written = os.path.exists(os.path.join(tmp, "bias_lut_sgext.npy"))
+    worst = float(np.abs(ext - committed_ext).max())
+    say("builders", f"build_bias_lut_sgext {ext.shape} in {dt:.2f} s "
+        f"(written to the temporary directory: {written}); worst "
+        f"difference from the committed table {worst:.3e}")
+    if not (written and np.array_equal(ext, committed_ext)):
+        raise AssertionError("the rebuilt sg-extension table differs from "
+                             "the committed one")
+    for lo in (0, 600, len(t_lut.SG_LUT) - 16):
+        t = time.perf_counter()
+        cols = t_lut.bias_lut_columns(lo, lo + 16).astype(np.float32)
+        dt = time.perf_counter() - t
+        worst = float(np.abs(cols - committed[:, lo:lo + 16]).max())
+        say("builders", f"2-D table columns {lo}:{lo + 16} (sg "
+            f"{t_lut.SG_LUT[lo]:.3f}-{t_lut.SG_LUT[lo + 15]:.3f} e-) in "
+            f"{dt:.2f} s; worst difference {worst:.3e}")
+        if not np.array_equal(cols, committed[:, lo:lo + 16]):
+            raise AssertionError(f"2-D table columns {lo}:{lo + 16} differ "
+                                 "from the committed ones")
+    dev = torch.device("cuda")
+    lut_d = torch.as_tensor(committed, device=dev)
+    ext_d = torch.as_tensor(committed_ext, device=dev)
+    for K, sigma in ((8.74, 12.81), (1.0, 20.0)):
+        host = t_lut.bias_curve_for(K, sigma, committed)
+        card = device_bias_curve(lut_d, torch.tensor(K, device=dev),
+                                 torch.tensor(sigma, device=dev),
+                                 ext_d).cpu().numpy()
+        err = float(np.abs(card - host).max())
+        sg = sigma / K
+        say("builders", f"bias_curve_for against the device curve at sg "
+            f"{sg:.3f} e-: max abs diff {err:.3e}")
+        ok = err < 1e-3 if sg > 10 else np.allclose(card, host, atol=2e-4,
+                                                    rtol=1e-3)
+        if not ok:
+            raise AssertionError(f"host and device bias curves differ at sg "
+                                 f"{sg:.3f}")
+
+
+# 16. the comparison zoo and the FBI blind-spot denoiser -------------------
+ZOO = (
+    {"name": "DnCNN", "in_nc": 4, "out_nc": 4, "nf": 16, "depth": 5,
+     "use_bn": True, "res": True},
+    {"name": "SelfSupUNet", "in_nc": 4, "out_nc": 4, "nf": 16, "depth": 3},
+    {"name": "SelfResUNet", "in_nc": 4, "out_nc": 4, "nf": 8, "depth": 3},
+    {"name": "N2NF_Unet", "in_nc": 4, "out_nc": 4},
+    {"name": "FBI_Net", "nf": 16, "num_of_layers": 4, "mul": 1,
+     "output_channel": 2, "output_type": "linear", "res": True,
+     "in_nc": 1, "out_nc": 2},
+    {"name": "GuidedSelfUnet", "guided": True, "in_nc": 4, "out_nc": 4,
+     "nf": 8, "res": False, "norm": True, "depth": 3},
+    {"name": "est_UNet", "in_nc": 4, "out_nc": 2, "nf": 16, "depth": 3})
+# JAX's default depth of FBI_Net (no FBI checkpoint is committed)
+FBI_ARCH = {"name": "FBI_Net", "nf": 64, "num_of_layers": 8, "mul": 1,
+            "output_channel": 1, "output_type": "linear", "res": False,
+            "in_nc": 1, "out_nc": 1}
+
+
+def zoo_phase(noisy) -> dict:
+    """Phase 16: each net of the zoo at flax's fresh init, card against
+    CPU on [2, 64, 64, C]; then VSTDenoiser(fbi=True) with FBI_Net nf 64,
+    8 layers (random weights: no PSNR is held) through phase 6's
+    TiledRunner (tiles of 1024 with halo 64) one tile at a time over the
+    3072x4096 frame: ms a tile, peak memory, and card against CPU on one
+    tile. TF32 off."""
+    from yondx_torch.core.tiling import tile_overlap
+    from yondx_torch.models.registry import build_model, flax_init_params, \
+        is_guided
+    from yondx_torch.pipeline.denoiser import VSTDenoiser
+    from yondx_torch.pipeline.runner import TiledRunner
+    from yondx_torch.vst.lut import BiasLUT
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = np.random.default_rng(16)
+    for arch in ZOO:
+        net = build_model(arch)
+        net.load_state_dict(flax_init_params(net, 0))
+        net.eval()
+        x = torch.from_numpy(g.random((2, 64, 64, arch["in_nc"]),
+                                      np.float32))
+        t = torch.tensor([0.1, 0.3])
+        args = (x, t) if is_guided(arch) else (x,)
+        with torch.no_grad():
+            cpu = net(*args)
+            card = net.cuda()(*(a.cuda() for a in args)).cpu()
+        err = float((card - cpu).abs().max())
+        scale = max(1.0, float(cpu.abs().max()))
+        say("zoo", f"{arch['name']}: output {tuple(cpu.shape)}, card vs CPU "
+            f"max abs diff {err:.3e} (outputs up to {scale:.3f})")
+        if not bool(torch.isfinite(card).all()) or err > 1e-4 * scale:
+            raise AssertionError(f"{arch['name']}: card and CPU differ by "
+                                 f"{err:.3e}")
+    K, sigma, scale = 8.74, 12.81, 959.0
+    curve = BiasLUT().curve(K, sigma)
+    dens = {}
+    for d in ("cpu", "cuda"):
+        fbi = build_model(FBI_ARCH)
+        fbi.load_state_dict(flax_init_params(fbi, 0))
+        dens[d] = VSTDenoiser(fbi.to(d).eval(), guided=False, fbi=True,
+                              device=d)
+    runner = TiledRunner(dens["cuda"], tile=1024, halo=64, batch=1)
+    frame = torch.from_numpy(noisy).cuda()
+    n_tiles = tile_overlap(frame, 1024, 64)[0].shape[0]
+    runner(frame, curve, K, sigma, scale)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        out = runner(frame, curve, K, sigma, scale)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dt = float(np.median(times))
+    tile = tile_overlap(frame, 1024, 64)[0][:1]
+    card = dens["cuda"](tile, curve, K, sigma, scale).cpu()
+    cpu = dens["cpu"](tile.cpu(), curve, K, sigma, scale)
+    err = float((card - cpu).abs().max())
+    say("zoo", f"VSTDenoiser(fbi=True), FBI_Net nf 64 x 8 layers, "
+        f"TiledRunner 1024/64 one tile at a time: {dt * 1e3:.2f} ms/frame "
+        f"({n_tiles} tiles of {tile.shape[-1]}x{tile.shape[-2]}, "
+        f"{dt * 1e3 / n_tiles:.2f} ms a tile; median of 3); peak memory "
+        f"{peak:.2f} GiB; card vs CPU on one tile max abs diff {err:.3e}")
+    if tuple(out.shape) != noisy.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError("FBI denoiser output has another shape or is "
+                             "not finite")
+    if err > 1e-3:
+        raise AssertionError(f"FBI denoiser: card and CPU differ by {err}")
+    return {"ms_tile": dt * 1e3 / n_tiles, "peak_gib": peak}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, metavar="DIR",
@@ -2151,6 +2524,15 @@ def main(argv=None) -> dict:
     # 13. the runfiles' eval and test modes (SIDD, ELD, LRID, DND) ---------
     phase13 = eval_phase(out_dir)
 
+    # 14. every option of the fused entry -----------------------------------
+    phase14 = options_phase(noisy, clean, bw, fp32)
+
+    # 15. the bias-table builders on the host --------------------------------
+    builders_phase()
+
+    # 16. the comparison zoo and the FBI blind-spot denoiser ----------------
+    zoo_phase(noisy)
+
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
         "source": "yondx_torch/csrc/nle_moments.cu",
@@ -2186,7 +2568,11 @@ def main(argv=None) -> dict:
         # phase 13's routes: SIDD eval and test (3 a scene), the PGE
         # runfile (2 a scene), ELD whole frames and the LRID tiled frame
         # (3 a frame), DND (3 a box)
-        "phase13": phase13}]}
+        "phase13": phase13,
+        # phase 14: the bench_matrix settings and the product
+        # configuration's options on the 3072x4096 frame (3 a frame, 5 at
+        # max_iter 2), and K1 at k = 19 and 41 against its plain version
+        "phase14": phase14}]}
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

@@ -40,7 +40,7 @@ from yondx_torch.cli import yond as t_yond
 from yondx_torch.eval import heldout as t_heldout
 from yondx_torch.pipeline.denoiser import BM3DVSTDenoiser
 from yondx_torch.vst import lut as t_lut
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 K_TRUE, SIG_TRUE, SCALE = 8.74, 12.81, 959.0

@@ -35,7 +35,7 @@ from yondx_torch.config import load_runfile
 from yondx_torch.config.yaml_subset import YAMLSubsetError, load
 from yondx_torch.core.io import dataload
 from yondx_torch.eval.fullframe import denoise_any
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 RUNFILES = sorted(glob.glob(os.path.join(REPO, "runfiles", "**", "*.yml"),

@@ -38,7 +38,7 @@ from yondx_torch.nle import robust as t_robust
 from yondx_torch.pipeline.denoiser import SimpleDenoiser, VSTDenoiser
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
 from yondx_torch.vst.lut import BiasLUT
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 GRU32 = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                      "Gaussian",
@@ -122,11 +122,19 @@ def test_gru32_matches_flax(gru32):
 
 
 def test_registry_builds_guided_unets_and_rejects_others():
+    """Every arch name of the JAX registry builds (the comparison zoo
+    too); a name neither registry knows raises KeyError."""
+    from yondx.models.registry import MODEL_REGISTRY as J_REGISTRY
+    from yondx_torch.models import comp
+    from yondx_torch.models.registry import MODEL_REGISTRY
     assert isinstance(build_model(NF8), GuidedResUnet)
     assert is_guided(NF8) and is_guided({"name": "GuidedResUnetS2D"})
     assert not is_guided({"name": "DnCNN"})
+    assert set(MODEL_REGISTRY) == set(J_REGISTRY)
+    assert isinstance(build_model({"name": "DnCNN", "in_nc": 4, "out_nc": 4,
+                                   "nf": 8, "depth": 3}), comp.DnCNN)
     with pytest.raises(KeyError, match="GuidedResUnet"):
-        build_model({"name": "DnCNN"})
+        build_model({"name": "NoSuchNet"})
 
 
 # ------------------------------------------------------ rotation, tiling
@@ -245,9 +253,17 @@ def test_vst_denoiser_pair_matches_jax(gru32, refine):
 
 
 def test_denoisers_reject_what_the_port_lacks(nf8):
+    """Nothing of the denoisers is missing any more: the blind-spot
+    variant (fbi=True; held to JAX in tests/test_torch_zoo_comp.py)
+    runs its FBI_Net on the mosaic, the q10 floor and SimpleDenoiser
+    run."""
     net = nf8[2]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        VSTDenoiser(net, fbi=True, device="cpu")
+    fbi = build_model({"name": "FBI_Net", "nf": 8, "num_of_layers": 3,
+                       "in_nc": 1, "output_channel": 1})
+    out = VSTDenoiser(fbi, guided=False, fbi=True, device="cpu")(
+        _bayer(64, 64, 1, (2, 2)), np.zeros(2177, np.float32), K_TRUE,
+        SIG_TRUE, SCALE)
+    assert out.shape == (64, 64) and bool(torch.isfinite(out).all())
     # the q10 floor (ROADMAP item 4's refine part) now runs
     lr = _bayer(64, 64, 1, (2, 2))
     pair = VSTDenoiser(net, refine=True, refine_floor="q10",

@@ -33,7 +33,7 @@ from yondx_torch.models.unets import GuidedResUnet, load_model
 from yondx_torch.pipeline import refine as t_refine
 from yondx_torch.pipeline.denoiser import BM3DVSTDenoiser, VSTDenoiser
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 EST_CKPT = os.path.join(REPO, "checkpoints", "Gaussian",

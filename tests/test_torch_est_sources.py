@@ -38,7 +38,7 @@ from yondx_torch.models.comp import est_UNet
 from yondx_torch.models.convert import params_to_state_dict
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
 from yondx_torch.pipeline.estnet import EstNet
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 CKPTS = os.path.join(REPO, "checkpoints", "Gaussian")

@@ -55,7 +55,7 @@ from yondx_torch.pipeline.denoiser import VSTDenoiser
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
 
 from test_torch_cli import tiny_runfile  # noqa: F401  (module fixture)
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 K, SIG = 6.0, 8.0
 

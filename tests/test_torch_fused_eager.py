@@ -23,7 +23,7 @@ from yondx_torch.pipeline.fused import make_fused_blind_denoiser as t_make
 from yondx_torch.vst.lut import BiasLUT
 
 from test_torch_fused import PRODUCT, _frame, assert_regs_close, nets  # noqa: F401
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 
 def test_slice_matches_jax_eager_36x128(nets):

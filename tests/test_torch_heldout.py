@@ -34,7 +34,7 @@ from yondx_torch.models.convert import params_to_state_dict
 from yondx_torch.models.unets import GuidedResUnet
 from yondx_torch.pipeline.denoiser import VSTDenoiser
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 NF8 = {"name": "GuidedResUnet", "guided": True, "in_nc": 4, "out_nc": 4,
        "nf": 8, "nframes": 1, "res": True, "norm": True}

@@ -1,7 +1,8 @@
-"""The card machine has torch, numpy and scipy but no jax, flax, msgpack
-or PyYAML, and the port must never reach the JAX package. In a fresh
-interpreter whose import system refuses those packages, every module of
-yondx_torch and chip_smoke.py must import.
+"""The card machine has torch, numpy and scipy but no jax, flax, msgpack,
+PyYAML, cv2 or h5py, and the port must never reach the JAX package. In a
+fresh interpreter whose import system refuses those packages, every
+module of yondx_torch and chip_smoke.py must import (readers that need
+h5py import it when called, and raise naming it where it is absent).
 """
 import os
 import pkgutil
@@ -15,7 +16,8 @@ REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SCRIPT = r"""
 import importlib, importlib.util, pkgutil, sys
 
-REFUSED = {"jax", "jaxlib", "flax", "msgpack", "yaml", "yondx"}
+REFUSED = {"jax", "jaxlib", "flax", "msgpack", "yaml", "yondx", "cv2",
+           "h5py"}
 
 
 class Refuse:

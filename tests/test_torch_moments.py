@@ -16,7 +16,7 @@ from yondx.nle.pallas_ops import fused_moments
 
 from yondx_torch.nle import boxfilter as t_box
 from yondx_torch.nle import moments
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 K, INNER = 29, 19
 

@@ -37,7 +37,7 @@ from yondx_torch.data import noise as t_noise
 from yondx_torch.data import raw_dataset as t_raw
 from yondx_torch.data import video as t_video
 from yondx_torch.train.draws import FieldSource
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 JAX_FIELD = FieldSource("jax", "cpu")
 

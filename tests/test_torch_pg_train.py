@@ -71,7 +71,7 @@ from yondx_torch.nle.threshold import adaptive_threshold_score2, linspace_f32
 from yondx_torch.train.draws import FieldSource
 from yondx_torch.train.pg_trainer import (PGEstTrainer, eval_pge,
                                           pge_eval_batches)
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 EST_CKPT = os.path.join(REPO, "checkpoints", "Gaussian",

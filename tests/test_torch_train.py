@@ -57,7 +57,7 @@ from yondx_torch.train import losses as t_losses
 from yondx_torch.train import s2d_port as t_s2d_port
 from yondx_torch.train import schedule as t_schedule
 from yondx_torch.train.ckpt import load_checkpoint, save_checkpoint
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 GAUSSIAN = sorted(glob.glob(os.path.join(REPO, "runfiles", "Gaussian",

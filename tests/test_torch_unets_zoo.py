@@ -46,7 +46,7 @@ from yondx_torch.models.registry import (MODEL_REGISTRY, build_model,
                                          init_params, is_guided)
 from yondx_torch.models.unets import load_model
 from yondx_torch.train import AWGNTrainer
-from torch_test_util import _two_torch_threads  # noqa: F401
+from torch_test_util import _one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 CKPTS = os.path.join(REPO, "checkpoints", "Gaussian")

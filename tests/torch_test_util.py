@@ -1,18 +1,27 @@
 """Fixtures shared by the port's test files (tests/test_torch_*.py).
 
 A file pulls a fixture in with one import, e.g.
-`from torch_test_util import _two_torch_threads  # noqa: F401`.
+`from torch_test_util import _one_torch_thread  # noqa: F401`.
 """
 import pytest
 import torch
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Run the importing module's torch ops on two threads: the suite runs
-    in parallel workers, and torch's default of one thread per core in
-    every worker oversubscribes the machine."""
+def _one_torch_thread():
+    """Run the importing module's torch ops on the calling thread alone.
+
+    The suite runs in parallel workers, and torch's default of one thread
+    per core in every worker oversubscribes the machine. One thread also
+    keeps every op off torch's intra-op worker threads: with two threads,
+    the part of an elementwise op that torch hands to its worker (the
+    second 2048-element chunk of a 4096-element sqrt, the second half of
+    a batch's sin/asin) came out of that worker, in some of the suite's
+    processes, up to 2.8e-4 (relative) off in sqrt and 1.1e-5 off after
+    the unprocess chain, the same values each time, while the calling
+    thread's part was exact; the same file passed in fresh processes.
+    """
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)

@@ -31,10 +31,13 @@ def _leaf_to_torch(path, name: str, arr: np.ndarray) -> np.ndarray:
 
 
 def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax params (numpy leaves; the variable dict {'params': tree} or the
-    tree itself) -> state_dict of contiguous float32 CPU tensors."""
-    if set(params) == {"params"}:
-        params = params["params"]
+    """flax params (numpy leaves; the variable dict {'params': tree[,
+    'batch_stats': tree]} or the tree itself) -> state_dict of contiguous
+    float32 CPU tensors. Batch stats (a BatchNorm's `mean`, `var`) join
+    the parameters under their module paths."""
+    trees = [params]
+    if "params" in params and set(params) <= {"params", "batch_stats"}:
+        trees = [params[c] for c in ("params", "batch_stats") if c in params]
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, path):
@@ -47,7 +50,8 @@ def params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             out[".".join(path + (tname,))] = torch.from_numpy(
                 np.array(arr, dtype=np.float32, order="C"))
 
-    walk(params, ())
+    for tree in trees:
+        walk(tree, ())
     return out
 
 

@@ -1,12 +1,14 @@
 """Separable box-filter statistics, reflect-101 borders (cv2.blur
 semantics); the plain PyTorch version of the NLE moments (port of
-yondx/nle/boxfilter.py:53-146).
+yondx/nle/boxfilter.py), and `np_box_mean`, a numpy box mean of the
+port's own in place of the JAX package's cv2.blur.
 
 Prefix sums run on per-plane centered data, so fp32 cancellation stays
 ~1e-6 on 2k-pixel rows. Layout: [..., H, W, C] (or [H, W] for box_mean).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.tiling import reflect_pad
@@ -37,7 +39,9 @@ def _box2d(x, k: int):
 
 def box_mean(x, k: int):
     """cv2.blur(x, (k, k)); [H, W] is one plane, ndim >= 3 is
-    [..., H, W, C]."""
+    [..., H, W, C]. The JAX package computes the same mean two ways, by
+    prefix sums (its box_mean) and by two k-tap convolutions (its
+    _sep_blur); this one serves for both."""
     if x.ndim == 2:
         return _box2d(x[..., None], k)[..., 0]
     return _box2d(x, k)
@@ -85,3 +89,34 @@ def nle_moments(x, k: int, inner: int):
     tm, tm2 = tb[..., :n], tb[..., n:]
     tex = torch.sqrt(torch.clamp(tm2 - tm * tm, min=0.0))
     return mean, var, tex
+
+
+def var_corr(x, k: int):
+    """Mean^2 / mean-of-squares ratio map box_k(x)^2 / box_k(x^2) (the
+    reference's var_corr): the content-vs-noise correction factor of
+    variance fits on textured regions."""
+    m = box_mean(x, k)
+    m2 = box_mean(x * x, k)
+    return (m * m) / torch.clamp(m2, min=1e-20)
+
+
+def np_box_mean(x: np.ndarray, k: int) -> np.ndarray:
+    """cv2.blur(x, (k, k)) in numpy: the k x k mean of the first two axes
+    of x ([H, W] or [H, W, C]) with reflect-101 borders, summed in float64
+    and returned in x's dtype (integers rounded half to even and clipped
+    to their range, as cv2 saturates)."""
+    x = np.asarray(x)
+    pad = k // 2
+    cfg = [(pad, pad), (pad, pad)] + [(0, 0)] * (x.ndim - 2)
+    y = np.pad(x.astype(np.float64), cfg, mode="reflect")
+    for axis, n in ((0, x.shape[0]), (1, x.shape[1])):
+        cs = np.cumsum(y, axis=axis)
+        zero = np.zeros_like(np.take(cs, [0], axis=axis))
+        cs = np.concatenate([zero, cs], axis=axis)
+        y = np.take(cs, np.arange(k, k + n), axis=axis) \
+            - np.take(cs, np.arange(n), axis=axis)
+    y = y / (k * k)
+    if np.issubdtype(x.dtype, np.integer):
+        info = np.iinfo(x.dtype)
+        y = np.clip(np.rint(y), info.min, info.max)
+    return y.astype(x.dtype)

@@ -1,7 +1,9 @@
-"""Masked least-squares line fit var ~ beta1 * mean + beta2 (port of
-yondx/nle/fit.py:19-41,73-80): weighted centered normal equations."""
+"""Line fits var ~ beta1 * mean + beta2 (port of yondx/nle/fit.py): the
+masked least-squares fit by weighted centered normal equations, the
+saturation filter of its weights, and the reference's host RANSAC fit."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -31,3 +33,35 @@ def nonsat_weights(x, w):
     w2 = w * nonsat
     keep = torch.sum(w2) > 0.01 * torch.sum(w)
     return torch.where(keep, w2, w)
+
+
+def ransac_linefit(x, y, mask=None, min_samples: int | None = None,
+                   n_trials: int = 64, seed: int = 2024):
+    """Host RANSAC line fit (the reference's ransac=True branch, seeded
+    2024 as there): n_trials least-squares fits of min_samples points
+    (default sqrt(n)) drawn without replacement by
+    numpy.random.default_rng(seed); the model with the most inliers
+    (|residual| under the median absolute deviation of y) is refit on its
+    inliers. Returns (beta1, beta2); fewer than 2 points give (0, 0)."""
+    x = np.asarray(x, np.float64).reshape(-1)
+    y = np.asarray(y, np.float64).reshape(-1)
+    if mask is not None:
+        keep = np.asarray(mask).reshape(-1) > 0
+        x, y = x[keep], y[keep]
+    n = len(x)
+    if n < 2:
+        return 0.0, 0.0
+    rng = np.random.default_rng(seed)
+    m = min_samples or max(int(np.sqrt(n)), 2)
+    resid_scale = max(np.median(np.abs(y - np.median(y))), 1e-12)
+    best_inl, best = -1, (0.0, 0.0)
+    for _ in range(n_trials):
+        idx = rng.choice(n, size=m, replace=False)
+        A = np.vstack([x[idx], np.ones(m)]).T
+        (b1, b2), *_ = np.linalg.lstsq(A, y[idx], rcond=None)
+        inl = np.abs(y - (b1 * x + b2)) < resid_scale
+        if inl.sum() > best_inl:
+            A2 = np.vstack([x[inl], np.ones(int(inl.sum()))]).T
+            best = tuple(np.linalg.lstsq(A2, y[inl], rcond=None)[0])
+            best_inl = int(inl.sum())
+    return float(best[0]), float(best[1])

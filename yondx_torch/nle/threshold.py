@@ -1,5 +1,7 @@
 """Adaptive flat-region thresholds (port of yondx/nle/threshold.py):
-score2 (the PG est-net data) and score3 with the sort implementation.
+score2 (the PG est-net data) and score3, whose candidate percentiles come
+from one sort (impl='sort', exact) or from an 8192-bin histogram
+(impl='hist', accurate to the bin width).
 
 score2: each percentile threshold th at quants 1..100 is scored th /
 quant; the argmin over the candidates from 5 past the first positive
@@ -84,7 +86,39 @@ def adaptive_threshold_score2(texture, step: int = 1):
     return th[0], quant[0]
 
 
+NBINS_HIST = 8192
+# the bins' upper edges over [0, 1]: jnp.linspace(0, 1, NBINS_HIST + 1)[1:]
+_HIST_LIN = linspace_f32(0.0, 1.0, NBINS_HIST + 1)[1:]
+
+
+def _hist_percentiles(data, quants):
+    """Percentiles of the 1-D float32 `data` at `quants` to the bin width
+    max(data) / NBINS_HIST, as the JAX package computes them: samples fall
+    into float32 bins (data / t_max * NBINS_HIST, truncated and clipped),
+    and each quant picks the upper edge of the first bin whose cumulative
+    count reaches quant / 100 of the total (compared in float32). The
+    counts are exact integers (bincount); JAX sums float32 ones, which is
+    exact while the total stays under 2^24 samples."""
+    t_max = torch.max(data) + 1e-12
+    edges = torch.from_numpy(_HIST_LIN).to(data.device) * t_max
+    bins = torch.clamp((data / t_max * NBINS_HIST).to(torch.int32), 0,
+                       NBINS_HIST - 1)
+    counts = torch.bincount(bins, minlength=NBINS_HIST)
+    cdf = torch.cumsum(counts, 0).to(torch.float32)
+    ranks = quants / 100.0 * cdf[-1]
+    idxs = torch.argmax((cdf[None, :] >= ranks[:, None]).to(torch.uint8),
+                        dim=1)
+    return edges[idxs]
+
+
 def _npeaks(texture, mean, ths, subsample: int = 1):
+    """Occupied 1000-bin brightness buckets among the samples with texture
+    <= th, for each candidate th. A bucket is occupied at th iff its
+    minimum texture is <= th. The per-bucket minimum is one scatter-min
+    here; the JAX package computes it without a scatter
+    (`_blockwise_min_by_bucket`, a chunked compare/select/min scan that
+    suits the TPU), and a minimum does not depend on the order of its
+    operands, so both give the same values."""
     data = _subsample(texture, subsample)
     m = _subsample(mean, subsample)
     buckets = (torch.clamp(m, 0.0, 1.0) * NBINS).to(torch.int64)
@@ -95,23 +129,44 @@ def _npeaks(texture, mean, ths, subsample: int = 1):
     return torch.clamp(npeaks, min=1.0)
 
 
-def _score3_full(texture, mean, step: int, subsample: int):
+def _score3_scores(ths, quants, npeaks):
+    return ths / (quants * npeaks)
+
+
+def _score3_full(texture, mean, step: int, impl: str, subsample: int):
     data = _subsample(texture, subsample)
     n_q = 100 // step
     quants = torch.linspace(step, 100, n_q, device=data.device,
                             dtype=torch.float32)
-    ths = percentile_linear(data, quants)
+    if impl == "hist":
+        ths = _hist_percentiles(data, quants)
+    elif impl == "sort":
+        ths = percentile_linear(data, quants)
+    else:
+        raise ValueError(f"unknown threshold impl {impl!r}: 'sort' or "
+                         "'hist'")
     npeaks = _npeaks(texture, mean, ths, subsample)
-    score = ths / (quants * npeaks)
+    score = _score3_scores(ths, quants, npeaks)
     i = torch.argmin(score[1:]) + 1
     return ths[i], quants[i], ths, quants
 
 
+def adaptive_threshold_score3(texture, mean, step: int = 5,
+                              impl: str = "sort", subsample: int = 1):
+    """(th, quant_percent) of the score3 mode. impl: 'sort' (exact
+    percentiles) or 'hist' (histogram percentiles, bin-accurate);
+    subsample: take every subsample-th 128-sample run for the threshold
+    selection only."""
+    th, quant, _, _ = _score3_full(texture, mean, step, impl, subsample)
+    return th, quant
+
+
 def score3_threshold_with_p25(texture, mean, step: int = 5,
-                              subsample: int = 1):
-    """(th, th25): the adaptive threshold and the 25th percentile from one
-    sort (yondx's impl='sort')."""
-    th, _, ths, _ = _score3_full(texture, mean, step, subsample)
+                              impl: str = "sort", subsample: int = 1):
+    """(th, th25): the adaptive threshold and the 25th percentile from
+    the same candidate percentiles (a separate one when 25 is not on the
+    step grid)."""
+    th, _, ths, _ = _score3_full(texture, mean, step, impl, subsample)
     if 25 % step == 0:
         th25 = ths[25 // step - 1]
     else:

@@ -3,8 +3,10 @@ yondx/pipeline/denoiser.py:54-310).
 
 VSTDenoiser: scale -> VST -> bias subtraction ('pre') -> normalize by
 [VST(0), VST(scale)] -> SNR-Net guided by t = nsr * sigma_corr -> optional
-Wiener refine -> inverse VST -> rescale. BM3DVSTDenoiser: the same VST
-around the host BM3D, normalized by the VST output's own min/max.
+Wiener refine -> inverse VST -> rescale; with fbi=True the blind-spot
+FBI_Net on the Bayer mosaic, normalized by the VST output's own min/max.
+BM3DVSTDenoiser: the same VST around the host BM3D, normalized by the
+VST output's own min/max.
 SimpleDenoiser: clamp -> net -> clamp on packed planes.
 
 The blind per-frame sigma_corr rule: low-noise scenes keep 1.03,
@@ -100,8 +102,10 @@ class VSTDenoiser:
     refine_*: the Wiener refine's settings (pipeline/refine.py). The
     net runs in compute_dtype when given (the caller loads its weights in
     that dtype, as `--bf16` does); everything around it stays float32.
-    The blind-spot variant (fbi=True) needs the FBI_Net of
-    models/comp.py, which the port does not have yet.
+    fbi=True is the blind-spot variant (FBI_Net of models/comp.py): the
+    VST output is normalised by its own min and max over the batch, and
+    the net takes the 1-channel Bayer mosaic [B, H, W, 1] (no padding, no
+    guidance, no refine).
     """
 
     def __init__(self, model, *, guided: bool = True,
@@ -113,16 +117,12 @@ class VSTDenoiser:
                  refine_shrink_full_alpha: float = 1.0,
                  refine_shrink_mode: str = "oriented",
                  sigma_corr=None, compute_dtype=None, device=None):
-        if fbi:
-            raise NotImplementedError(
-                "fbi=True needs the FBI_Net blind-spot model of "
-                "models/comp.py, which is not ported yet "
-                "(ROADMAP item 6)")
         self.model = model
         self.guided = guided
         self.bias_corr = bias_corr
         self.vst_type = vst_type
         self.pad_base = pad_base
+        self.fbi = fbi
         self.refine = refine
         self.refine_k = refine_k
         self.refine_beta = refine_beta
@@ -144,25 +144,35 @@ class VSTDenoiser:
     def _denoise(self, lr_rggb, curve, K, sigma, scale, corr=None):
         """-> (output, raw net output) RGGB. corr None resolves the
         instance's sigma_corr policy from the call's own pixels."""
-        if corr is None:
-            corr = adaptive_sigma_corr(lr_rggb, K, sigma, scale) \
-                if self.sigma_corr == "adaptive" \
-                else self._scalar(float(self.sigma_corr))
         x = lr_rggb * scale
         z = vst(x, sigma, gain=K)
         if self.bias_corr == "pre":
             coeffs = cheb_fit_curve(curve)
             z = z - lookup_bias_curve_cheb(torch.clamp(x, min=0.0), coeffs,
                                            K)
-        lower = vst(self._scalar(0.0), sigma, gain=K)
-        upper = vst(self._scalar(1.0) * scale, sigma, gain=K)
+        if self.fbi:
+            lower, upper = torch.min(z), torch.max(z)
+        else:
+            lower = vst(self._scalar(0.0), sigma, gain=K)
+            upper = vst(self._scalar(1.0) * scale, sigma, gain=K)
         nsr = 1.0 / (upper - lower)
         z = (z - lower) * nsr
-        z_noisy = z
-        z = run_net(self.model, z, nsr * corr, self.guided, self.pad_base,
-                    self.compute_dtype)
-        z_raw = z
-        if self.refine:
+        if self.fbi:
+            zin = torch.clamp(rggb2bayer(z)[..., None], 0.0, 1.0)
+            if self.compute_dtype is not None:
+                zin = zin.to(self.compute_dtype)
+            out = torch.clamp(self.model(zin).float(), 0.0, 1.0)
+            z = z_raw = bayer2rggb(out[..., 0])
+        else:
+            if corr is None:
+                corr = adaptive_sigma_corr(lr_rggb, K, sigma, scale) \
+                    if self.sigma_corr == "adaptive" \
+                    else self._scalar(float(self.sigma_corr))
+            z_noisy = z
+            z = run_net(self.model, z, nsr * corr, self.guided,
+                        self.pad_base, self.compute_dtype)
+            z_raw = z
+        if self.refine and not self.fbi:
             z = wiener_refine(
                 z, z_noisy, noise_var=nsr ** 2, k=self.refine_k,
                 beta=self.refine_beta, x01=z, noise_floor=self.refine_floor,
@@ -178,7 +188,7 @@ class VSTDenoiser:
 
         # the raw (un-refined) output feeds the next round's collab NLE
         out = finish(z)
-        return out, (finish(z_raw) if self.refine else out)
+        return out, (finish(z_raw) if self.refine and not self.fbi else out)
 
     def __call__(self, lr_bayer, curve, K, sigma, scale):
         return self.denoise_pair(lr_bayer, curve, K, sigma, scale)[0]

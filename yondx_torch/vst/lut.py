@@ -1,9 +1,13 @@
-"""Bias LUT grids, committed tables and the gather-free Chebyshev lookup
-(port of yondx/vst/lut.py).
+"""Bias LUT grids, tables and the gather-free Chebyshev lookup (port of
+yondx/vst/lut.py).
 
-The tables are the committed `checkpoints/bias_lut_2d.npy` (X_LUT x
-SG_LUT) and `checkpoints/bias_lut_sgext.npy` (X_LUT x SG_EXT); the port
-reads them and never rebuilds them.
+The tables are `checkpoints/bias_lut_2d.npy` (X_LUT x SG_LUT) and
+`checkpoints/bias_lut_sgext.npy` (X_LUT x SG_EXT, the device path's
+extension past sg = 10 e-). Both are committed; when one is missing,
+`BiasLUT` and `load_sgext_lut` build it with the exact separable
+evaluator (`bias.bias_points`) and write it to the path asked for (next
+to the main table for the extension), as the JAX package does: about
+8 s for the extension, a few minutes for the 2-D table.
 """
 from __future__ import annotations
 
@@ -40,6 +44,45 @@ _PKG_CHECKPOINTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "..", "checkpoints")
 
 
+def _save(path: str | None, lut: np.ndarray) -> None:
+    if path:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.save(path, lut)
+
+
+def bias_lut_columns(lo: int, hi: int) -> np.ndarray:
+    """Columns lo:hi of the 2-D table: the bias at (X_LUT e-, SG_LUT[lo:hi]
+    e-), gain 1, float64."""
+    return bias_points(X_LUT, SG_LUT[lo:hi])
+
+
+def build_bias_lut(path: str | None = None, block: int = 256) -> np.ndarray:
+    """The 2-D bias table [len(X_LUT), len(SG_LUT)] (float32), built
+    `block` sg columns at a time, saved to `path` when given."""
+    lut = np.empty((len(X_LUT), len(SG_LUT)), np.float64)
+    for s in range(0, len(SG_LUT), block):
+        lut[:, s:s + block] = bias_lut_columns(s, s + block)
+    lut = lut.astype(np.float32)
+    _save(path, lut)
+    return lut
+
+
+def build_bias_lut_sgext(path: str | None = None) -> np.ndarray:
+    """The exact bias table over (X_LUT, SG_EXT) for the device sg > 10
+    path (float32), saved to `path` when given."""
+    lut = bias_points(X_LUT, SG_EXT).astype(np.float32)
+    _save(path, lut)
+    return lut
+
+
+def _sgext_path_for(lut_path: str | None) -> str | None:
+    """The extension table's path: next to the main table."""
+    if lut_path:
+        return os.path.join(os.path.dirname(lut_path) or ".",
+                            "bias_lut_sgext.npy")
+    return None
+
+
 def _default_lut_path() -> str | None:
     """Search order: $YONDX_BIAS_LUT, ./checkpoints/bias_lut_2d.npy, then
     the checkpoints/ folder of the checkout this package sits in."""
@@ -52,56 +95,81 @@ def _default_lut_path() -> str | None:
     return None
 
 
-def _require(path: str | None, what: str) -> str:
-    if not path or not os.path.exists(path):
-        raise FileNotFoundError(
-            f"{what} not found (looked for {path!r}); the port reads the "
-            "committed table and does not rebuild it")
-    return path
+# tables read or built in this process, by absolute path ("__sgext__" /
+# "__built__" for tables built without one)
+_LUT_CACHE: dict = {}
 
 
 def load_sgext_lut(lut_path: str | None = None) -> np.ndarray:
-    """The exact sg-extension table [len(X_LUT), len(SG_EXT)] next to the
-    main LUT."""
-    main = lut_path or _default_lut_path()
-    path = os.path.join(os.path.dirname(main) or ".", "bias_lut_sgext.npy") \
-        if main else None
-    lut = np.load(_require(path, "bias_lut_sgext.npy"))
+    """The sg-extension table [len(X_LUT), len(SG_EXT)] next to the main
+    table (`lut_path`, else the default one): read, or built and written
+    there when missing."""
+    path = _sgext_path_for(lut_path or _default_lut_path())
+    key = os.path.abspath(path) if path else "__sgext__"
+    if key not in _LUT_CACHE:
+        if path and os.path.exists(path):
+            _LUT_CACHE[key] = np.load(path)
+        else:
+            _LUT_CACHE[key] = build_bias_lut_sgext(path)
+    lut = _LUT_CACHE[key]
     if lut.shape != (len(X_LUT), len(SG_EXT)):
         raise ValueError(f"bad sg-extension table shape {lut.shape}")
     return lut
 
 
 class BiasLUT:
-    """Holder of the committed 2-D bias table [len(X_LUT), len(SG_LUT)]."""
+    """Holder of the 2-D bias table [len(X_LUT), len(SG_LUT)]: `lut`, or
+    the table at `lut_path` (else the default one), built and written
+    there when missing."""
 
     def __init__(self, lut_path: str | None = None,
                  lut: np.ndarray | None = None):
         if lut is None:
-            lut = np.load(_require(lut_path or _default_lut_path(),
-                                   "bias_lut_2d.npy"))
+            lut_path = lut_path or _default_lut_path()
+            if lut_path and os.path.exists(lut_path):
+                key = os.path.abspath(lut_path)
+                if key not in _LUT_CACHE:
+                    _LUT_CACHE[key] = np.load(lut_path)
+                lut = _LUT_CACHE[key]
+            elif lut_path:
+                lut = build_bias_lut(lut_path)
+            else:
+                if "__built__" not in _LUT_CACHE:
+                    _LUT_CACHE["__built__"] = build_bias_lut()
+                lut = _LUT_CACHE["__built__"]
         if lut.shape != (len(X_LUT), len(SG_LUT)):
             raise ValueError(f"bad bias table shape {lut.shape}")
         self.lut = np.asarray(lut, np.float32)
 
     def curve(self, K: float, sigma: float) -> np.ndarray:
         """Host bias curve over FULL_X_GRID (float32, len 2177) for shot
-        gain K and read sigma (DN): in the table's sg range a blend of two
-        sg columns, beyond it the exact evaluation of the whole column;
-        the closed form past 2^10 e- (yondx/vst/lut.py:175-187)."""
-        sg = float(sigma) / float(K)
-        if sg <= SG_LUT[-1]:
-            pos = sg / 0.005 if sg < 1.0 else 200.0 + (sg - 1.0) / 0.01
-            pos = min(max(pos, 0.0), len(SG_LUT) - 1)
-            lo = int(math.floor(pos))
-            hi = min(lo + 1, len(SG_LUT) - 1)
-            w = pos - lo
-            base = self.lut[:, lo] * (1.0 - w) + self.lut[:, hi] * w
-        else:
-            base = bias_points(X_LUT, np.array([sg]))[:, 0]
-        ext = close_form_bias(X_EXT, sigGs=sg, K=1.0)
-        return np.concatenate((base.astype(np.float32),
-                               ext.astype(np.float32)))
+        gain K and read sigma (DN)."""
+        return bias_curve_for(K, sigma, self.lut)
+
+
+def _sg_frac_index(sg: float) -> float:
+    """Analytic fractional index of sg in SG_LUT (piecewise linear)."""
+    if sg < 1.0:
+        return sg / 0.005
+    return 200.0 + (sg - 1.0) / 0.01
+
+
+def bias_curve_for(K: float, sigma: float, lut: np.ndarray) -> np.ndarray:
+    """Host per-call bias curve over FULL_X_GRID (float32, len 2177): in
+    the table's sg range (sg = sigma / K <= 10 e-) a blend of two sg
+    columns, beyond it the exact evaluation of the whole column; the
+    closed form past 2^10 e-."""
+    sg = float(sigma) / float(K)
+    if sg <= SG_LUT[-1]:
+        pos = min(max(_sg_frac_index(sg), 0.0), len(SG_LUT) - 1)
+        lo = int(math.floor(pos))
+        hi = min(lo + 1, len(SG_LUT) - 1)
+        w = pos - lo
+        base = lut[:, lo] * (1.0 - w) + lut[:, hi] * w
+    else:
+        base = bias_points(X_LUT, np.array([sg]))[:, 0].astype(np.float32)
+    ext = close_form_bias(X_EXT, sigGs=sg, K=1.0).astype(np.float32)
+    return np.concatenate((base.astype(np.float32), ext))
 
 
 def frac_index_x(xe):
