@@ -60,7 +60,14 @@ table and three 16-column blocks of the 2-D bias table on the host,
 bit-equal to the committed ones, and holds the host bias curve to the
 device curve. Phase 16 runs each net of the comparison zoo card vs CPU
 and VSTDenoiser(fbi=True) with FBI_Net nf 64 x 8 layers (random
-weights) in tiles of 1024 over the frame. Every phase prints one
+weights) in tiles of 1024 over the frame. Phase 17 runs yondx_torch.parallel
+on NCCL at world 1: `yond --input --mesh 1` on a 6144x8192 frame (50.3
+MP, one shard, no tiling) held to the tiled single-card route (regs
+within 1%, PSNR within 0.05 dB), a crop of the route on the card rank
+against a CPU (gloo) rank, K1 against its plain version at the shard's
+halo-extended shape, and the gru32 trainer under DDP against the plain
+trainer for three steps; with two cards or more, the route and the
+trainer at world 2. Every phase prints one
 line with its elapsed seconds; any failure raises (exit code != 0). The
 last two lines are the kernels' JSON record and the device JSON record.
 With --out, each held-out column's eval_synth JSON is written into DIR.
@@ -804,15 +811,17 @@ def _est_args(tmp, **hyper):
     return args
 
 
-def hold_step(phase, label, out, lr, loss_rtol, max_frac) -> None:
-    """Card against CPU after one Adam step from the same weights and
-    inputs, out = {device: {loss, p, g, mu, nu}}: loss within loss_rtol;
+def hold_step(phase, label, out, lr, loss_rtol, max_frac,
+              keys=("cuda", "cpu")) -> None:
+    """Card against CPU (or out[keys[0]] against out[keys[1]]) after one
+    Adam step from the same weights and inputs, out = {device: {loss, p,
+    g, mu, nu}}: loss within loss_rtol;
     gradients and both moments within max_frac of each tensor's max;
     weights within the move Adam's first step lr g / (|g| + eps) can
     make for the tensor's gradient error e, lr eps e / (|g| - e + eps)^2
     while |g| > 2e (doubled here) and 2 lr where |g| <= 2e, plus 3e-7
     for rounding; at most 1% of the entries apart by more than 3e-7."""
-    c, g = out["cpu"], out["cuda"]
+    g, c = out[keys[0]], out[keys[1]]
     rel = {key: {n: float(np.abs(g[key][n] - c[key][n]).max())
                  / max(float(np.abs(c[key][n]).max()), 1e-30)
                  for n in c[key]} for key in ("g", "mu", "nu")}
@@ -2010,40 +2019,96 @@ def k1_at_k(k, flush, bw, fp32) -> dict:
     [1, 2, 256, 2048, 4] (phase 3's tolerances), and each flavour timed
     (cold L2, an event pair around each synchronised call) beside its
     bound."""
-    from yondx_torch.nle import moments
     from yondx_torch.pipeline.fused import _take_bands
-    inner = k // 3 * 2 + 1
     g = torch.Generator(device="cuda").manual_seed(k)
     frame = torch.rand((1, 1536, 2048, 4), generator=g, device="cuda") * 0.7
-    x = _take_bands(frame, 6, 2, 3, 256)
-    tol = {"mean": 1e-5, "var": 1e-6, "tex": 5e-5}
+    return k1_check(_take_bands(frame, 6, 2, 3, 256), k, flush, bw, fp32,
+                    "K1 at k", f"k={k} (inner {k // 3 * 2 + 1}), bands "
+                    "[1,2,256,2048,4]")
+
+
+K1_TOL = {"mean": 1e-5, "var": 1e-6, "tex": 5e-5}
+
+
+def k1_check(x, k, flush, bw, fp32, phase, label, reps=20,
+             plain_reps=10, ref_dtype=None, tol=K1_TOL, tex_sq=False,
+             timed=True) -> dict:
+    """K1 on x against its plain version in its three flavours (phase 3's
+    tolerances by default), each flavour timed (cold L2) beside its
+    bound, the plain self flavour timed beside (timed=False: the check
+    alone). ref_dtype=torch.float64 runs the plain version in float64
+    (planes so large that its float32 whole-plane prefix sums drift: the
+    float32 plain version's own error is printed beside) and prints where
+    each map's worst error lies; tex_sq compares tex as its square, the
+    pre-blurred plane's variance, where tex falls near 0 and the square
+    root would turn a variance error e into sqrt(e)."""
+    from yondx_torch.nle import moments
+    inner = k // 3 * 2 + 1
     rec = {}
+    plain_errs = {}
     for flavour, (texture, mean, ops) in K1_FLAVOURS.items():
         got = moments.nle_moments(x, k, inner, texture, mean)
         torch.cuda.synchronize()
-        ref = moments.nle_moments_plain(x, k, inner, texture, mean)
-        errs = {key: float((gv - rv).abs().max())
-                for key, gv, rv in zip(("mean", "var", "tex"), got, ref)
-                if gv is not None}
+        ref = moments.nle_moments_plain(x if ref_dtype is None
+                                        else x.to(ref_dtype), k, inner,
+                                        texture, mean)
+        errs = {}
+        for key, gv, rv in zip(("mean", "var", "tex"), got, ref):
+            if gv is None:
+                continue
+            gv = gv.to(rv.dtype)
+            if key == "tex" and tex_sq:
+                gv, rv = gv ** 2, rv ** 2
+            d = (gv - rv).abs()
+            errs[key] = float(d.max())
+            if ref_dtype is not None:
+                at = np.unravel_index(int(d.argmax()), tuple(d.shape))
+                say(phase, f"{label}, {flavour} {key}"
+                    f"{'^2' if key == 'tex' and tex_sq else ''}: max abs err "
+                    f"{errs[key]:.3e} at {tuple(int(i) for i in at)}: exact "
+                    f"{float(rv[at]):.6e}, K1 {float(gv[at]):.6e}, input "
+                    f"{float(x[at]):.4f}")
+        finite = all(bool(torch.isfinite(gv).all()) for gv in got
+                     if gv is not None)
+        if ref_dtype is not None:
+            p32 = moments.nle_moments_plain(x, k, inner, texture, mean)
+            plain_errs[flavour] = max(float((pv - rv).abs().max())
+                                      for pv, rv in zip(p32[:2], ref[:2])
+                                      if pv is not None)
+            del p32
+        del got, ref
         for key, e in errs.items():
-            if e > tol[key] or not bool(torch.isfinite(
-                    got[("mean", "var", "tex").index(key)]).all()):
-                raise AssertionError(f"K1 k={k} {flavour}: {key} err {e:.3e}"
-                                     f" > {tol[key]:.0e}")
+            if e > tol[key] or not finite:
+                raise AssertionError(f"K1 k={k} {flavour} ({label}): {key} "
+                                     f"err {e:.3e} > {tol[key]:.0e}")
+        if not timed:
+            rec[flavour] = {"max_abs_err": max(errs.values())}
+            continue
         ms = cuda_ms(lambda: moments.nle_moments(x, k, inner, texture, mean),
-                     20, flush)
+                     reps, flush)
         nbytes = 4 * x.numel() * (2 + texture + mean)
         t_bytes, t_ops = nbytes / bw * 1e3, x.numel() * ops / fp32 * 1e3
         rec[flavour] = {"ms": ms, "bound_ms": max(t_bytes, t_ops),
                         "bound_by": "bytes" if t_bytes >= t_ops
                         else "operations", "max_abs_err": max(errs.values())}
-    plain = cuda_ms(lambda: moments.nle_moments_plain(x, k, inner), 10, flush)
+    if not timed:
+        say(phase, f"{label}: max abs err " + "; ".join(
+            f"{f} {r['max_abs_err']:.3e}" for f, r in rec.items())
+            + ("" if ref_dtype is None else "; the float32 plain version "
+               "is off the float64 one by " + ", ".join(
+                   f"{f} {e:.3e}" for f, e in plain_errs.items())))
+        return rec
+    plain = cuda_ms(lambda: moments.nle_moments_plain(x, k, inner),
+                    plain_reps, flush)
     rec["self"]["plain_ms"] = plain
-    say("K1 at k", f"k={k} (inner {inner}), bands [1,2,256,2048,4]: " +
+    say(phase, f"{label}: " +
         "; ".join(f"{f} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
                   f"{r['bound_by']} ({r['ms'] / r['bound_ms']:.1f}x), max "
                   f"abs err {r['max_abs_err']:.3e}" for f, r in rec.items())
-        + f"; plain (self) {plain:.4f} ms")
+        + f"; plain (self) {plain:.4f} ms"
+        + ("" if ref_dtype is None else f"; reference: the plain version in "
+           f"{ref_dtype}, against which the float32 plain version is off by "
+           + ", ".join(f"{f} {e:.3e}" for f, e in plain_errs.items())))
     return rec
 
 
@@ -2262,6 +2327,353 @@ def zoo_phase(noisy) -> dict:
     if err > 1e-3:
         raise AssertionError(f"FBI denoiser: card and CPU differ by {err}")
     return {"ms_tile": dt * 1e3 / n_tiles, "peak_gib": peak}
+
+
+# ---------------------------------------------------------------- phase 17
+MESH_FRAME = (6144, 8192)        # 50.3 MP Bayer, [3072, 4096, 4] RGGB
+# K1 on image content (the frame's own rows: flat levels with noise and
+# step edges of up to 0.7) against the plain version in float64: each
+# tile's sums run on data shifted by one sample of the tile, and where
+# that sample lies across an edge from a dark flat, the flat's fp32
+# second moments cancel to a few 1e-6 (on an H100: var 4.7e-6 off where
+# the exact var is 6.5e-4; tex^2 4.9e-6). Random data at the same shape
+# is held to phase 3's tolerances.
+K1_CONTENT_TOL = {"mean": 1e-5, "var": 1e-5, "tex": 1e-5}
+
+
+def _noise_model_gap(r_a, r_b, mu) -> float:
+    """|v_a - v_b| / v_b of two (beta1, beta2) noise models' variance at
+    the mean intensity mu (tests/test_product_50mp.py's comparison)."""
+    va, vb = r_a[0] * mu + r_a[1], r_b[0] * mu + r_b[1]
+    return abs(va - vb) / max(abs(vb), 1e-30)
+
+
+def _max_bin_counts(mesh, x, engine, out) -> dict:
+    """The largest count of one bin of the NLE's 4096-bin log histograms
+    on this frame, counted exactly (int64): the self fit's texture field
+    and the collab fit's (sqrt of the round-0 output's local variance;
+    the ANY runfile has no refine, so the output is the raw one). The
+    route counts in float32, as JAX does, where a bin stops at 2^24."""
+    from yondx_torch.isp.bayer import bayer2rggb
+    from yondx_torch.nle.moments import nle_moments
+    from yondx_torch.parallel import spatial
+    k = engine.pipe.k
+    _, _, tex = spatial.sharded_box_stats(mesh, x, k)
+    dn = bayer2rggb(torch.from_numpy(out).to(mesh.device))
+    dne = spatial._halo_exchange_rows(mesh, dn, k)
+    _, var, _ = nle_moments(dne[None], k, k // 3 * 2 + 1, texture=False,
+                            mean=False)
+    t_collab = torch.sqrt(var[0, k:-k])
+    return {name: int(torch.bincount(spatial.log_bins(mesh, t.reshape(-1))[0],
+                                     minlength=spatial.NBINS_TH).max())
+            for name, t in (("self", tex), ("collab", t_collab))}
+
+
+def _sharded_rank(mesh, frame_path, clean_path, runs=2) -> dict:
+    """One rank of phase 17's route at world n: the ANY runfile's engine
+    on this rank's card, the frame's rows sharded over the mesh; a
+    warm-up and `runs` timed frames (ms/frame from the host clock around
+    synchronised work); K1 launches of the timed frames; PSNR of rank
+    0's result."""
+    from yondx_torch.cli import yond
+    from yondx_torch.nle import moments
+    from yondx_torch.parallel import iter_denoise_frame_sharded
+    noisy = np.load(frame_path)
+    engine = yond.YOND(["-f", ANY_RUNFILE, "--device",
+                        str(mesh.device)]).engine
+    iter_denoise_frame_sharded(mesh, engine, noisy, any_params())
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" \
+        else (lambda: None)
+    sync()
+    moments.reset_launches()
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        res = iter_denoise_frame_sharded(mesh, engine, noisy, any_params())
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    out = res["raw_dns"][-1]
+    return {"ms": float(np.median(times)), "times": times,
+            "launches": moments.LAUNCHES["nle_moments"],
+            "regs": res["regs"], "psnr": psnr(out, np.load(clean_path)),
+            "finite": bool(np.isfinite(out).all())}
+
+
+def _dp_rank(mesh, args, batches, keys, lr) -> dict:
+    """One rank of phase 17's data-parallel trainer: a fresh gru32
+    AWGNTrainer under DDP over the mesh, one step a global batch; the
+    record after step 1 (hold_step's), the losses and ms of each step
+    (host clock around synchronised steps)."""
+    from yondx_torch.train import AWGNTrainer
+    tr = AWGNTrainer(args, field="torch", mesh=mesh)
+    return _three_steps(tr, batches, keys, lr,
+                        torch.cuda.synchronize
+                        if mesh.device.type == "cuda" else (lambda: None))
+
+
+def _three_steps(tr, batches, keys, lr, sync) -> dict:
+    losses, ms, first = [], [], None
+    for i, (batch, key) in enumerate(zip(batches, keys)):
+        sync()
+        t = time.perf_counter()
+        loss, _, _ = tr.train_step(batch, key, lr)
+        sync()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        if i == 0:
+            first = step_record(tr, loss)
+    return {"first": first, "losses": losses, "ms": ms}
+
+
+def mesh_phase(bw, fp32) -> dict:
+    """Phase 17, the row-sharded frame route and the data-parallel
+    trainer (yondx_torch.parallel) on NCCL at world 1 (one card; NCCL puts
+    no two ranks on one card):
+    (a) `yond --input --mesh 1` on make_frame(6144, 8192) (50.3 MP: the
+        whole [3072, 4096, 4] frame as one shard, no tiling; the ANY
+        runfile's gru32 fp32), K1 counted around it (3 a frame); the
+        route timed on its engine (median of 2), peak memory, one frame
+        profiled; the same
+        frame through the tiled single-card route (iter_denoise_tiled,
+        tiles 1024 + halo 64): regs within the product gate's 1% (noise
+        models at the frame's mean), PSNR within 0.05 dB; the largest
+        bin count of the NLE's log histograms (exact) against 2^24;
+    (b) a 512x768 crop through the route, the card rank (NCCL) against a
+        CPU rank (gloo) by phase 9e's rule;
+    (c) K1 against its plain version in float64 at the shard's
+        halo-extended shape [1, 3130, 4096, 4]: on uniform data by phase
+        3's tolerances, on the shard's own rows by K1_CONTENT_TOL (timed
+        there beside its bound);
+    (d) the gru32 trainer (GRU_5to50_norm_mix.yml: batch 64 of 256 px)
+        under DDP at world 1, three steps, against the plain trainer's
+        steps from the same init and draws (cuDNN deterministic, TF32
+        off): step 1 by phase 10a's bounds, the losses of steps 2-3
+        within 1e-4; ms/step of both (the gap is DDP's hooks);
+    cuDNN picks its algorithms by heuristics throughout (benchmark mode
+    off);
+    (e) with two cards or more, (a)'s route and (d) at world 2 through
+        `parallel.spawn`; else a line says why they did not run."""
+    from yondx_torch.cli import yond
+    from yondx_torch.data.datasets import SyntheticSRGBDataset
+    from yondx_torch.isp.bayer import bayer2rggb
+    from yondx_torch.nle import moments
+    from yondx_torch.parallel import iter_denoise_frame_sharded, spawn
+    from yondx_torch.parallel import spatial
+    from yondx_torch.parallel.mesh import make_mesh
+    from yondx_torch.train import AWGNTrainer
+    from yondx_torch.train.draws import train_keys
+    import torch.distributed as dist
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # cuDNN's heuristics, not its benchmark mode: planning the 50 MP
+    # shard's convolutions took 53 s of the first frame on an H100
+    bench_mode = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    rec = {}
+    H, W = MESH_FRAME
+    t = time.perf_counter()
+    noisy, clean = make_frame(H, W)
+    say("phase 17", f"make_frame({H}, {W}) on the host in "
+        f"{time.perf_counter() - t:.2f} s")
+    mesh = make_mesh(1)
+    say("phase 17", f"mesh of {mesh.size} on {mesh.device}, backend "
+        f"{dist.get_backend(mesh.group)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        fin, fout = os.path.join(tmp, "frame.npy"), os.path.join(tmp,
+                                                                 "dn.npy")
+        fclean = os.path.join(tmp, "clean.npy")
+        np.save(fin, noisy)
+        np.save(fclean, clean)
+        # (a) the CLI as a user types it, counted
+        moments.reset_launches()
+        t = time.perf_counter()
+        app = yond.main(["-f", ANY_RUNFILE, "--input", fin, "--output",
+                         fout, "--mesh", "1"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        launches = moments.LAUNCHES["nle_moments"]
+        out = np.load(fout)
+        p_in, p_cli = psnr(noisy, clean), psnr(out, clean)
+        say("phase 17 (a)", f"yond --input --mesh 1 ({H}x{W}) in {cli_s:.2f} "
+            f"s (model load and the first "
+            f"pass over the {H // 2 + 128}x{W // 2} shard included); PSNR {p_in:.2f} -> {p_cli:.2f} dB; K1 "
+            f"launches {launches}")
+        if out.shape != (H, W) or not np.isfinite(out).all() \
+                or out.min() < 0.0 or out.max() > 1.0:
+            raise AssertionError("sharded CLI output is not a finite "
+                                 f"{H}x{W} frame in [0, 1]")
+        if launches != 3:
+            raise AssertionError(f"K1 launched {launches} times in the "
+                                 "sharded CLI run, expected 3")
+        if p_cli < p_in + 10.0:
+            raise AssertionError(f"sharded PSNR gain {p_cli - p_in:.2f} dB "
+                                 "< 10 dB")
+        engine = app.engine
+        moments.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(2):
+            t = time.perf_counter()
+            res = iter_denoise_frame_sharded(mesh, engine, noisy,
+                                             any_params())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated()
+        timed = moments.LAUNCHES["nle_moments"]
+        dt = float(np.median(times))
+        out_s = res["raw_dns"][-1]
+        p_s = psnr(out_s, clean)
+        say("phase 17 (a)", f"iter_denoise_frame_sharded x1, {H}x{W}: "
+            f"{dt * 1e3:.2f} ms/frame, {H * W / 1e6 / dt:.2f} MP/s (median "
+            f"of 2; runs {[round(x * 1e3, 2) for x in times]} ms); peak "
+            f"memory {peak / 2 ** 30:.2f} GiB; PSNR {p_in:.2f} -> "
+            f"{p_s:.2f} dB; K1 launches {timed}; regs {res['regs']}")
+        if timed != 6:
+            raise AssertionError(f"K1 launched {timed} times in 2 frames, "
+                                 "expected 6")
+        # where a frame's time goes: one more frame under the profiler
+        profile_run("phase 17 (a) profile",
+                    lambda: iter_denoise_frame_sharded(mesh, engine, noisy,
+                                                       any_params()))
+        x = spatial.shard_rows(mesh, bayer2rggb(torch.from_numpy(noisy)))
+        counts = _max_bin_counts(mesh, x, engine, res["raw_dns"][0])
+        say("phase 17 (a)", "largest log-histogram bin (exact count): "
+            + ", ".join(f"{k} {v}" for k, v in counts.items())
+            + f"; 2^24 = {2 ** 24}: "
+            + ("passed" if max(counts.values()) > 2 ** 24 else "not passed"))
+        torch.cuda.synchronize()
+        tiled_times = []
+        for _ in range(2):
+            t = time.perf_counter()
+            res_t = engine.iter_denoise_tiled({"lr": noisy}, any_params(),
+                                              tile=1024, halo=64)
+            torch.cuda.synchronize()
+            tiled_times.append(time.perf_counter() - t)
+        p_t = psnr(res_t["raw_dns"][-1], clean)
+        mu = float(np.mean(noisy))
+        gaps = [_noise_model_gap(rs, rt, mu)
+                for rs, rt in zip(res["regs"], res_t["regs"])]
+        say("phase 17 (a)", f"tiled route (tiles 1024 + halo 64): "
+            f"{tiled_times[-1] * 1e3:.2f} ms/frame (runs "
+            f"{[round(x * 1e3, 2) for x in tiled_times]} ms); PSNR "
+            f"{p_t:.4f} dB against the sharded {p_s:.4f}; regs "
+            f"{res_t['regs']}; noise models apart by "
+            f"{[round(g, 5) for g in gaps]} of the tiled ones at the mean")
+        if len(res_t["regs"]) != len(res["regs"]) or max(gaps) > 0.01:
+            raise AssertionError("sharded and tiled regs differ by > 1%")
+        if abs(p_s - p_t) > 0.05:
+            raise AssertionError(f"sharded and tiled PSNR differ by "
+                                 f"{abs(p_s - p_t):.4f} dB > 0.05")
+        rec.update({"launches": launches + timed, "ms_frame": dt * 1e3,
+                    "tiled_ms_frame": tiled_times[-1] * 1e3,
+                    "peak_gib": peak / 2 ** 30, "psnr": [p_in, p_s, p_t],
+                    "max_bin": counts})
+        regs1 = res["regs"]
+        del res, res_t, out, out_s
+
+        # (c) K1 at the shard's halo-extended shape, the frame's rows
+        k = engine.pipe.k
+        xe = spatial._halo_exchange_rows(mesh, x, k)[None].contiguous()
+        scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        shape = f"[1, {xe.shape[1]}, {W // 2}, 4]"
+        g = torch.Generator(device="cuda").manual_seed(xe.shape[1])
+        k1_check(torch.rand(xe.shape, generator=g, device="cuda") * 0.7, k,
+                 scratch.zero_, bw, fp32, "phase 17 (c)",
+                 f"K1 at the shard's shape {shape}, uniform in [0, 0.7)",
+                 ref_dtype=torch.float64, timed=False)
+        k1 = k1_check(xe, k, scratch.zero_, bw, fp32, "phase 17 (c)",
+                      f"K1 on the shard's rows {shape}", reps=10,
+                      plain_reps=3, ref_dtype=torch.float64,
+                      tol=K1_CONTENT_TOL, tex_sq=True)
+        rec["k1"] = dict(k1, shape=list(xe.shape))
+        del xe, x, scratch
+
+        # (b) a crop, card rank against a CPU rank
+        r, c = H // 6 * 2, W // 6 * 2
+        crop = np.ascontiguousarray(noisy[r:r + 512, c:c + 768])
+        cclean = clean[r:r + 512, c:c + 768]
+        res_c = {}
+        cpu_mesh = make_mesh(1, device="cpu")
+        cpu_engine = yond.YOND(["-f", ANY_RUNFILE, "--device",
+                                "cpu"]).engine
+        for label, m, e in (("cuda", mesh, engine),
+                            ("cpu", cpu_mesh, cpu_engine)):
+            res_c[label] = iter_denoise_frame_sharded(m, e, crop,
+                                                      any_params())
+        base = np.array(res_c["cuda"]["regs"])
+        spread = np.max([np.abs(np.array(iter_denoise_frame_sharded(
+            mesh, engine, crop + s, any_params())["regs"]) - base)
+            for s in (1e-6, -1e-6)], axis=0)
+        _card_vs_cpu(f"phase 17 (b) 512x768 crop, NCCL rank vs gloo rank "
+                     f"(backend {dist.get_backend(cpu_mesh.group)})",
+                     res_c["cuda"]["raw_dns"][-1],
+                     res_c["cpu"]["raw_dns"][-1], res_c["cuda"]["regs"],
+                     res_c["cpu"]["regs"], spread, cclean)
+        del engine, cpu_engine, app
+
+        # (d) the data-parallel trainer at world 1 against the plain one
+        args = _train_args(TRAIN_RUNFILE, tmp)
+        ds = SyntheticSRGBDataset(length=64 * 12, size=256, seed=1997)
+        batches = [np.stack([ds[i] for i in range(64 * s, 64 * (s + 1))])
+                   for s in range(3)]
+        chain = train_keys(1997)
+        keys = [next(chain) for _ in range(3)]
+        lr = 2e-4
+        torch.backends.cudnn.deterministic = True
+        steps = {"plain": _three_steps(AWGNTrainer(args, device="cuda",
+                                                   field="torch"),
+                                       batches, keys, lr,
+                                       torch.cuda.synchronize),
+                 "ddp": _dp_rank(mesh, args, batches, keys, lr)}
+        torch.backends.cudnn.deterministic = False
+        hold_step("phase 17 (d)", "step 1, DDP at world 1 vs the plain "
+                  "trainer, gru32 batch 64 x [128,128,4]",
+                  {k_: v["first"] for k_, v in steps.items()}, lr,
+                  loss_rtol=1e-4, max_frac=1e-3, keys=("ddp", "plain"))
+        for name, st in steps.items():
+            say("phase 17 (d)", f"{name}: ms/step "
+                f"{[round(v, 2) for v in st['ms']]} (mean of steps 2-3 "
+                f"{np.mean(st['ms'][1:]):.2f}); losses {st['losses']}")
+        lp, ld = np.array(steps["plain"]["losses"]), \
+            np.array(steps["ddp"]["losses"])
+        if not (np.abs(ld - lp) <= 1e-4 * np.abs(lp)).all():
+            raise AssertionError(f"DDP losses {ld} differ from {lp}")
+        rec["train_ms"] = {k_: float(np.mean(v["ms"][1:]))
+                           for k_, v in steps.items()}
+
+        # (e) world 2
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            torch.cuda.empty_cache()
+            w2 = spawn(2, _sharded_rank, fin, fclean)
+            r2 = w2[0]
+            gaps = [_noise_model_gap(a, b, mu)
+                    for a, b in zip(r2["regs"], regs1)]
+            say("phase 17 (e)", f"route at world 2: {r2['ms']:.2f} ms/frame "
+                f"(runs {[round(v, 2) for v in r2['times']]}), PSNR "
+                f"{r2['psnr']:.4f} dB; K1 launches per rank "
+                f"{[w['launches'] for w in w2]}; regs {r2['regs']}, apart "
+                f"from world 1's by {[round(g, 6) for g in gaps]}")
+            if not r2["finite"] or abs(r2["psnr"] - p_s) > 0.05 \
+                    or len(gaps) != len(regs1) or max(gaps) > 0.01 \
+                    or any(w["launches"] != 6 for w in w2):
+                raise AssertionError("world-2 route disagrees with world 1")
+            d2 = spawn(2, _dp_rank, args, batches, keys, lr)
+            hold_step("phase 17 (e)", "step 1, DDP at world 2 vs world 1",
+                      {"w2": d2[0]["first"], "w1": steps["ddp"]["first"]},
+                      lr, loss_rtol=1e-4, max_frac=1e-3, keys=("w2", "w1"))
+            say("phase 17 (e)", f"DDP at world 2: ms/step "
+                f"{[round(v, 2) for v in d2[0]['ms']]}; losses "
+                f"{d2[0]['losses']}")
+            rec["world2"] = {"ms_frame": r2["ms"],
+                             "train_ms": float(np.mean(d2[0]["ms"][1:]))}
+        else:
+            say("phase 17 (e)", f"not run: world 2 needs two cards, one a "
+                f"rank (NCCL puts no two ranks on one card), and this "
+                f"machine has {n_cards}")
+    dist.destroy_process_group()
+    torch.backends.cudnn.benchmark = bench_mode
+    return rec
 
 
 def main(argv=None) -> dict:
@@ -2533,6 +2945,12 @@ def main(argv=None) -> dict:
     # 16. the comparison zoo and the FBI blind-spot denoiser ----------------
     zoo_phase(noisy)
 
+    # 17. one frame's rows over a mesh, the data-parallel trainer ---------
+    phase17 = mesh_phase(bw, fp32)
+    max_err = max(max_err, *(f["max_abs_err"]
+                             for f in phase17["k1"].values()
+                             if isinstance(f, dict)))
+
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
         "source": "yondx_torch/csrc/nle_moments.cu",
@@ -2572,7 +2990,12 @@ def main(argv=None) -> dict:
         # phase 14: the bench_matrix settings and the product
         # configuration's options on the 3072x4096 frame (3 a frame, 5 at
         # max_iter 2), and K1 at k = 19 and 41 against its plain version
-        "phase14": phase14}]}
+        "phase14": phase14,
+        # phase 17: the sharded route at world 1 on the 50.3 MP frame (3
+        # a frame on each rank's halo rows: the CLI run and 2 timed
+        # frames), K1 against its plain version at the shard's shape
+        # [1, 3130, 4096, 4]
+        "phase17": phase17}]}
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

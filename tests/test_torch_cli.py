@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.io
+import torch
 import yaml
 
 from yondx.config import load_runfile as j_load_runfile
@@ -217,8 +218,13 @@ def test_cli_raises_for_what_the_port_lacks(tiny_runfile, monkeypatch):
     root, path, frame = tiny_runfile
     monkeypatch.chdir(root)
     base = ["-f", str(path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_yond.main(base + ["--input", str(frame), "--mesh", "4"])
+    # --mesh 4 on CUDA needs 4 cards, one a rank (on the CPU it runs 4
+    # gloo ranks: tests/test_torch_parallel.py)
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < 4:
+        with pytest.raises(ValueError, match=f"needs 4 cards.*has {have}"):
+            t_yond.main(["-f", str(path), "--input", str(frame), "--mesh",
+                         "4"])
     # the ANY runfile names no dataset: eval and test mode raise where
     # JAX's _dataset raises
     with pytest.raises(NotImplementedError, match="provide data under"):
@@ -241,7 +247,8 @@ def test_cli_raises_for_what_the_port_lacks(tiny_runfile, monkeypatch):
     with pytest.raises(FileNotFoundError):
         t_yond.YOND(["-f", str(missing), "--cpu"])
     app = t_yond.YOND(base)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a mesh must be the port's (not a jax Mesh or a device count)
+    with pytest.raises(TypeError, match="yondx_torch.parallel.Mesh"):
         denoise_any(app.engine, str(frame), mesh=object())
 
 

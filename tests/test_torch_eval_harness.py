@@ -394,7 +394,8 @@ def test_fullframe_tiled_route_with_cfa_rotation_matches_jax(
 def test_fullframe_route_by_size_matches_jax():
     """tile 0 tiles at 1024 from 16 MP (LRID's 3472x4624) and runs ELD's
     Sony 2848x4256 whole; -1 is always whole, > 0 always tiled; a mesh
-    raises (ROADMAP item 9)."""
+    that is not the port's is refused (the sharded route itself:
+    tests/test_torch_parallel.py)."""
     for tile in (0, -1, 512):
         j = j_fullframe.FullFrameHarness(None, None, "r", tile=tile)
         t = t_fullframe.FullFrameHarness(None, None, "r", tile=tile)
@@ -404,7 +405,7 @@ def test_fullframe_route_by_size_matches_jax():
     t = t_fullframe.FullFrameHarness(None, None, "r")
     assert [t._route(np.broadcast_to(np.float32(0), s))
             for s in ((2848, 4256), (3472, 4624))] == [0, 1024]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="yondx_torch.parallel.Mesh"):
         t_fullframe.FullFrameHarness(None, None, "r", mesh=object())
 
 

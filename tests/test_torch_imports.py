@@ -85,3 +85,25 @@ def test_training_modules_are_in_the_refused_import_run():
         for pkg in ("jax", "flax", "optax", "msgpack", "yondx."):
             assert f"import {pkg}" not in src and f"from {pkg}" not in src, \
                 (name, pkg)
+
+
+PARALLEL = ["yondx_torch.parallel", "yondx_torch.parallel.mesh",
+            "yondx_torch.parallel.spatial", "yondx_torch.parallel.product"]
+
+
+def test_parallel_modules_are_in_the_refused_import_run():
+    """The mesh, spatial and product modules are among those the guarded
+    run imports (jax, cv2 and h5py refused), and none of their sources
+    names jax or the JAX package."""
+    names = [m.name for m in pkgutil.walk_packages(yondx_torch.__path__,
+                                                   "yondx_torch.")]
+    assert set(PARALLEL) <= set(names)
+    for name in PARALLEL:
+        path = os.path.join(REPO, *name.split(".")) + ".py"
+        if not os.path.exists(path):
+            path = os.path.join(REPO, *name.split("."), "__init__.py")
+        with open(path) as f:
+            src = f.read()
+        for pkg in ("jax", "flax", "yondx.", "cv2", "h5py"):
+            assert f"import {pkg}" not in src and f"from {pkg}" not in src, \
+                (name, pkg)

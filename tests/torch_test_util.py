@@ -25,3 +25,21 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+class BoxBlur3(torch.nn.Module):
+    """A 3x3 reflect-101 box mean per channel of [B, h, w, C] planes: the
+    port's stand-in for tests/test_product_50mp.py's _BlurModel (a weak
+    denoiser with a 1-px receptive field). It lives here, beside no JAX
+    import, so that the ranks of a spawned test group can unpickle it."""
+
+    def forward(self, x, t=None):
+        from yondx_torch.nle.boxfilter import box_mean
+        return box_mean(x, 3)
+
+
+def run_fullframe(mesh, engine, dataset, name):
+    """FullFrameHarness(engine, dataset, name, mesh=mesh).run() on one rank
+    of a spawned test group (a module-level function, so that it pickles)."""
+    from yondx_torch.eval.fullframe import FullFrameHarness
+    return FullFrameHarness(engine, dataset, name, mesh=mesh).run()

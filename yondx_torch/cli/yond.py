@@ -26,16 +26,27 @@ reader's layout): 'eval' scores SIDD crop blocks with `eval/sidd.py`
 exposure), writing ./metrics/{method}_metrics.pkl; 'test' writes the
 SIDD benchmark's npy cache (npy/{method}/) or DND's submission bundle
 (submits/test/{method}/bundled/).
+
+--mesh N runs N ranks, one process each on its own card (NCCL), or on
+the CPU under gloo with --device cpu; each builds the engine on its
+device. `--input` and the eval mode of the full-frame datasets (ELD,
+LRID, DND) shard each frame's rows over the ranks
+(parallel.iter_denoise_frame_sharded); the SIDD harness and the test
+modes run on rank 0 alone, as JAX's CLI does not shard them. Rank 0
+writes the .npy, the logs and the metrics. Under torchrun the ranks
+join its group; otherwise the CLI starts them itself.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import torch
 
 from .. import resolve_device
 from ..config import load_runfile
+from ..core import logging as core_logging
 from ..core.logging import log
 from ..eval.fullframe import denoise_any
 from ..io.ckpt import find_checkpoint
@@ -70,8 +81,8 @@ def build_parser():
     p.add_argument("--bl", type=int, default=64)
     p.add_argument("--ratio", type=float, default=1.0)
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="row-shard the frame over N devices (not ported "
-                        "yet)")
+                   help="row-shard the frame over N ranks, one card each "
+                        "(gloo ranks with --device cpu)")
     p.add_argument("--tile", type=int, default=1024,
                    help="ANY mode: overlap-tile size in bayer px")
     return p
@@ -91,15 +102,14 @@ def load_model_params(arch, model_name, fast_ckpt, device=None):
 
 
 class YOND:
-    """The runfile-driven application object."""
+    """The runfile-driven application object; with `mesh` (a
+    parallel.Mesh) one rank's, on the rank's device."""
 
-    def __init__(self, argv=None):
+    def __init__(self, argv=None, mesh=None):
         self.parser = build_parser().parse_args(argv)
-        if self.parser.mesh:
-            raise NotImplementedError(
-                "--mesh (row-sharding over several devices) is not ported "
-                "yet (ROADMAP item 9)")
-        self.device = "cpu" if self.parser.cpu else self.parser.device
+        self.mesh = mesh
+        self.device = str(mesh.device) if mesh is not None else \
+            "cpu" if self.parser.cpu else self.parser.device
         self.args = load_runfile(self.parser.runfile, mode=self.parser.mode)
         self.mode = self.args["mode"]
         self.arch = self.args["arch"]
@@ -176,7 +186,8 @@ class YOND:
     def denoise_any(self, path: str, out: str | None = None):
         return denoise_any(self.engine, path, wp=self.parser.wp,
                            bl=self.parser.bl, ratio=self.parser.ratio,
-                           tile=self.parser.tile, out_path=out)
+                           tile=self.parser.tile, out_path=out,
+                           mesh=self.mesh)
 
     def _dataset(self, mode):
         dst = self.args.get(f"dst_{mode}", self.args.get("dst", {}))
@@ -219,7 +230,7 @@ class YOND:
             tile=int(self.pipe.extras.get("tile", 0)),
             halo=int(self.pipe.extras.get("halo", 64)),
             illum_correct=(self.pipe.data_type == "ELD"),
-            logfile=self.logfile)
+            logfile=self.logfile, mesh=self.mesh)
         return harness.run(limit=limit)
 
     def benchmark(self, limit=None):
@@ -239,20 +250,45 @@ class YOND:
         return self._sidd_harness("test").run(limit=limit)
 
 
-def main(argv=None):
-    app = YOND(argv)
+def _run(app):
+    """The run the parsed flags ask for; with a mesh, on every rank."""
     if app.parser.input:
         out = app.parser.output or (os.path.splitext(
             app.parser.input)[0] + "_denoised.npy")
         app.denoise_any(app.parser.input, out)
         log(f"Denoised frame saved to {out}")
         return app
-    if "eval" in app.mode:
+    main_rank = app.mesh is None or app.mesh.is_main
+    if "eval" in app.mode and (app.pipe.data_type != "SIDD" or main_rank):
         app.eval()
         log(f"Metrics saved in ./metrics/{app.method_name}_metrics.pkl")
-    if "test" in app.mode:
+    if "test" in app.mode and main_rank:
         app.benchmark()
     return app
+
+
+def _rank_main(mesh, argv):
+    """One rank of a --mesh run: logs from rank 0 only."""
+    core_logging.set_enabled(mesh.is_main)
+    _run(YOND(argv, mesh=mesh))
+
+
+def main(argv=None):
+    """Run the CLI; returns the YOND object, or None where --mesh started
+    the ranks as new processes."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    opts = build_parser().parse_args(argv)
+    if not opts.mesh:
+        return _run(YOND(argv))
+    from ..parallel.mesh import make_mesh, spawn
+    import torch.distributed as dist
+    device = "cpu" if opts.cpu else opts.device
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        mesh = make_mesh(opts.mesh, device=device)
+        core_logging.set_enabled(mesh.is_main)
+        return _run(YOND(argv, mesh=mesh))
+    spawn(opts.mesh, _rank_main, argv, device=device)
+    return None
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
 """Full-frame eval harness for ELD / LRID / DND and the ANY-camera
-single-frame path (port of yondx/eval/fullframe.py, on one card).
+single-frame path (port of yondx/eval/fullframe.py).
 
 `FullFrameHarness` runs the full iterated pipeline (self NLE -> denoise
 -> collab NLE -> second pass) on each whole frame of a dataset, whole or
-through the overlap-tiled runner by frame size; ELD adds the illuminance
+through the overlap-tiled runner by frame size on one card, or with a
+mesh its rows sharded over the mesh's ranks
+(parallel.iter_denoise_frame_sharded); ELD adds the illuminance
 alignment against the GT exposure before scoring. `denoise_any` is the
-`--input` path.
+`--input` path. With a mesh every rank runs the harness on the same
+frames; rank 0 writes the metrics and the .npy.
 """
 from __future__ import annotations
 
@@ -20,9 +23,6 @@ from ..core.meters import AverageMeter, MetricsRecorder
 from ..data.augment import illuminance_correct
 from ..isp.bayer import rot_bayer
 from .metrics import matlab_ssim, psnr
-
-_MESH_ERROR = ("row-sharding a frame over a mesh (--mesh) is not ported "
-               "yet (ROADMAP item 9)")
 
 
 class FullFrameHarness:
@@ -43,7 +43,9 @@ class FullFrameHarness:
                  logfile: Optional[str] = None,
                  mesh=None):
         if mesh is not None:
-            raise NotImplementedError(_MESH_ERROR)
+            from ..parallel.mesh import check_mesh
+            check_mesh(mesh)
+        self.mesh = mesh
         self.engine = engine
         self.dataset = dataset
         self.method_name = method_name
@@ -66,6 +68,10 @@ class FullFrameHarness:
         return self.AUTO_TILE if mp >= self.AUTO_TILE_MP else 0
 
     def _denoise_frame(self, lr: np.ndarray, p: Dict[str, Any]):
+        if self.mesh is not None:
+            from ..parallel.product import iter_denoise_frame_sharded
+            res = iter_denoise_frame_sharded(self.mesh, self.engine, lr, p)
+            return res["raw_dns"], res["regs"]
         tile = self._route(lr)
         if tile:
             res = self.engine.iter_denoise_tiled({"lr": lr}, p, tile=tile,
@@ -109,7 +115,8 @@ class FullFrameHarness:
         if self.psnr_m.count:
             log(f"{self.method_name}: PSNR={self.psnr_m.avg:.2f}, "
                 f"SSIM={self.ssim_m.avg:.4f}", logfile=self.logfile)
-        self.metrics.save()
+        if self.mesh is None or self.mesh.is_main:
+            self.metrics.save()
         return {"psnr": self.psnr_m.avg, "ssim": self.ssim_m.avg}
 
 
@@ -123,9 +130,13 @@ def denoise_any(engine, path_or_array, wp: int = 1023, bl: int = 64,
 
     Takes a file path (any format core.io.dataload reads) or a bayer
     array; values > 1.5 are DN and normalized by (wp, bl). Returns the
-    denoised bayer in [0, 1] (numpy); saves it as .npy to out_path."""
+    denoised bayer in [0, 1] (numpy); saves it as .npy to out_path.
+    mesh: a parallel.Mesh -> the frame's rows are sharded over its ranks
+    (halo 64, as in JAX) instead of tiled; call it on every rank, rank 0
+    saves."""
     if mesh is not None:
-        raise NotImplementedError(_MESH_ERROR)
+        from ..parallel.mesh import check_mesh
+        check_mesh(mesh)
     raw = dataload(path_or_array) if isinstance(path_or_array, str) \
         else np.asarray(path_or_array)
     raw = raw.astype(np.float32)
@@ -137,10 +148,15 @@ def denoise_any(engine, path_or_array, wp: int = 1023, bl: int = 64,
         raw = rot_bayer(torch.from_numpy(raw), cfa).numpy()
     p = {"wp": wp, "bl": bl, "ratio": ratio, "scale": (wp - bl) / ratio,
          "gain": 1.0, "sigma": 0.0}
-    res = engine.iter_denoise_tiled({"lr": raw}, p, tile=tile, halo=halo)
+    if mesh is not None:
+        from ..parallel.product import iter_denoise_frame_sharded
+        res = iter_denoise_frame_sharded(mesh, engine, raw, p)
+    else:
+        res = engine.iter_denoise_tiled({"lr": raw}, p, tile=tile,
+                                        halo=halo)
     dn = np.clip(res["raw_dns"][-1], 0.0, 1.0)
     if rotate:
         dn = rot_bayer(torch.from_numpy(dn), cfa, rev=True).numpy()
-    if out_path:
+    if out_path and (mesh is None or mesh.is_main):
         np.save(out_path, dn)
     return dn

@@ -43,21 +43,29 @@ def adaptive_sigma_corr(rggb, K, sigma, scale):
     """Guidance scale in {1.00, 1.03, 1.08, 1.25} (float32 0-d tensor).
     rggb: [..., H, W, 4] in [0, 1]; K, sigma in DN; scale = wp - bl.
     Precedence: hi-noise > clip-boost > lo-noise > mid default."""
-    c_lo, c_mid, c_hi, c_clip = ADAPTIVE_CORR_VALUES
-    zero = torch.zeros((), device=rggb.device)
-    lower = vst(zero, sigma, gain=K)
-    upper = vst(torch.ones((), device=rggb.device) * scale, sigma, gain=K)
-    nsr = 1.0 / (upper - lower)
     clip_frac = torch.mean(((rggb < 0.02) | (rggb > 0.98)).float())
     mu = torch.mean(torch.clamp(rggb, 0.0, 1.0))
+    return adaptive_corr_from_stats(K, sigma, scale, clip_frac, mu,
+                                    mad_self_estimate(rggb))
+
+
+def adaptive_corr_from_stats(K, sigma, scale, clip_frac, mu, mad):
+    """adaptive_sigma_corr's rule on the frame's statistics: the clipped
+    fraction, the mean of the clipped frame and the MAD (beta1, beta2)
+    (the row-sharded route computes them over all ranks)."""
+    c_lo, c_mid, c_hi, c_clip = ADAPTIVE_CORR_VALUES
+    zero = torch.zeros((), device=mu.device)
+    lower = vst(zero, sigma, gain=K)
+    upper = vst(torch.ones((), device=mu.device) * scale, sigma, gain=K)
+    nsr = 1.0 / (upper - lower)
     v_fit = (K / scale) * mu + (sigma / scale) ** 2
-    m1, m2 = mad_self_estimate(rggb)
+    m1, m2 = mad
     v_mad = m1 * mu + m2
     madr = torch.sqrt(torch.clamp(v_mad, min=0.0)
                       / torch.clamp(v_fit, min=1e-30))
 
     def const(v):
-        return torch.full((), v, device=rggb.device)
+        return torch.full((), v, device=mu.device)
 
     corr = torch.where(nsr < ADAPTIVE_CORR_NSR_LO, const(c_lo), const(c_mid))
     boost = (clip_frac > ADAPTIVE_CORR_CLIP) \

@@ -22,6 +22,15 @@ last/epoch/best checkpoints, a fast eval at sigma_list[1] every plot_freq
 epochs, the epoch-start snapshot consistency branch ('consistency' in
 dst.command, from epoch 101), distillation from a frozen teacher with
 frozen student stages, and `hyper.remat` through torch.utils.checkpoint.
+
+Data parallel: given a mesh (parallel.Mesh), the net trains wrapped in
+DistributedDataParallel over the mesh's ranks. Every rank draws the
+GLOBAL batch's cameras, sigmas and fields from the same keys or
+generator (as JAX draws them inside its step over the whole batch) and
+keeps its rows of it; DDP's gradient mean over equal shards is the
+global batch's gradient, so a step of n ranks is the step of one. The
+reported loss and PSNR are the ranks' mean. Every rank resumes from the
+same file; rank 0 writes checkpoints, plots and logs.
 """
 from __future__ import annotations
 
@@ -55,12 +64,36 @@ from .schedule import lr_lambda_from_hyper
 _F32 = np.float32
 
 
+class _Checkpointed(torch.nn.Module):
+    """A net whose forward runs under torch.utils.checkpoint (hyper.remat):
+    activations are recomputed in the backward pass."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, *args):
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(self.net, *args, use_reentrant=False)
+
+
 class AWGNTrainer:
-    def __init__(self, args: Dict[str, Any], device=None, *, field: str):
+    def __init__(self, args: Dict[str, Any], device=None, *, field: str,
+                 mesh=None):
         """args: the parsed YAML runfile dict (dst*/arch/hyper blocks);
         device: "cuda" unless "cpu" is asked for; field: the source of the
-        training steps' Gaussian fields, "torch" or "jax"."""
+        training steps' Gaussian fields, "torch" or "jax"; mesh: a
+        parallel.Mesh to train data-parallel on (its device replaces
+        `device`; batch_size must split over its ranks)."""
         self.args = args
+        if mesh is not None:
+            from ..parallel.mesh import check_mesh
+            device = check_mesh(mesh).device
+            if args["hyper"]["batch_size"] % mesh.size:
+                raise ValueError(f"batch_size {args['hyper']['batch_size']} "
+                                 f"does not split over {mesh.size} ranks")
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         self.device = resolve_device(device)
         self.arch = args["arch"]
         self.hyper = args["hyper"]
@@ -140,6 +173,9 @@ class AWGNTrainer:
                 params_to_state_dict(read_params(t_ck)["params"]))
             self._place(self.teacher)
             self.teacher.eval().requires_grad_(False)
+            if mesh is not None:
+                from ..parallel.mesh import replicate
+                replicate(mesh, self.teacher)
             frz = self.distill.get("freeze", [])
             if frz == "ported":
                 from .s2d_port import S2D_PORT_MAP
@@ -154,6 +190,15 @@ class AWGNTrainer:
         # per-step record of the last train() call: epoch, loss, PSNR and
         # the loader and step seconds (synchronised by the PSNR read)
         self.steps = []
+        # the module the training forward runs: checkpointed with remat,
+        # under DDP (which starts from rank 0's weights) with a mesh
+        self.net = _Checkpointed(self.model) if self.remat else self.model
+        if mesh is not None:
+            from torch.nn.parallel import DistributedDataParallel
+            self.net = DistributedDataParallel(
+                self.net, device_ids=([self.device.index]
+                                      if self.device.type == "cuda" else None),
+                process_group=mesh.group)
 
     def _place(self, net):
         net.to(self.device)
@@ -171,12 +216,15 @@ class AWGNTrainer:
                 self.model.get_parameter(name).copy_(t)
 
     # -------------------------------------------------------------- steps
-    def _forward(self, net, x, t, checkpointed: bool = False):
-        args = (x, t) if self.guided else (x,)
-        if checkpointed:
-            from torch.utils.checkpoint import checkpoint
-            return checkpoint(net, *args, use_reentrant=False)
-        return net(*args)
+    def _forward(self, net, x, t):
+        return net(x, t) if self.guided else net(x)
+
+    def _rows(self, B: int) -> slice:
+        """This rank's rows of a global batch of B."""
+        if self.mesh is None:
+            return slice(None)
+        b = B // self.mesh.size
+        return slice(self.mesh.rank * b, (self.mesh.rank + 1) * b)
 
     def train_step(self, batch, keys, lr_value: float,
                    use_consistency: float = 0.0, ema=None):
@@ -184,8 +232,11 @@ class AWGNTrainer:
 
         keys: (k_data, k_noise, k_cons) of the step; ema: the epoch-start
         snapshot net of the consistency branch. Returns (loss, psnr, sample)
-        with loss and psnr 0-d device tensors and sample the first crop's
-        (noisy, pred, hr, wb, cam2rgb, pattern)."""
+        with loss and psnr 0-d device tensors (the ranks' mean with a
+        mesh) and sample the first crop's (noisy, pred, hr, wb, cam2rgb,
+        pattern) of this rank's rows. With a mesh, `batch` is the global
+        batch: the draws cover all of it and the net takes this rank's
+        rows."""
         k_data, k_noise, k_cons = keys
         x = to_unit(batch, self.device)
         B = x.shape[0]
@@ -223,12 +274,13 @@ class AWGNTrainer:
         d_w = float(self.distill.get("weight", 1.0)) if self.distill else 0.0
         gt_w = float(self.distill.get("gt_weight", 0.0)) \
             if self.distill else 1.0
-        self.model.train()
-        pred = self._forward(self.model, noisy, sigma, self.remat)
-        loss = gt_w * unet_loss(pred, hr)
+        rows = self._rows(B)
+        self.net.train()
+        pred = self._forward(self.net, noisy[rows], sigma[rows])
+        loss = gt_w * unet_loss(pred, hr[rows])
         if self.teacher is not None:
             with torch.no_grad():
-                t_pred = self._forward(self.teacher, noisy, sigma)
+                t_pred = self._forward(self.teacher, noisy[rows], sigma[rows])
             loss = loss + d_w * torch.mean(torch.abs(pred - t_pred))
         if self.consistency and use_consistency:
             # a second noisy view through the epoch-start snapshot; with
@@ -238,7 +290,8 @@ class AWGNTrainer:
             bshape = (B,) + (1,) * (hr.ndim - 1)
             noise = self.field.normal(k2, hr.shape) * sigma.reshape(bshape)
             with torch.no_grad():
-                pred2 = self._forward(ema, hr + noise * st, sigma * st)
+                pred2 = self._forward(ema, (hr + noise * st)[rows],
+                                      (sigma * st)[rows])
             loss = loss + use_consistency * 0.1 * torch.mean(
                 torch.abs(pred - pred2))
 
@@ -254,10 +307,17 @@ class AWGNTrainer:
                 for p, p0 in zip(self._frozen_params, frozen):
                     p.copy_(p0)
         with torch.no_grad():
+            hr, noisy = hr[rows], noisy[rows]
             m = psnr_loss(torch.clamp(pred, 0, 1), torch.clamp(hr, 0, 1))
             sample = (torch.clamp(noisy[0], 0, 1), torch.clamp(pred[0], 0, 1),
-                      hr[0], wb[0], cam2rgb[0], pattern[0])
-        return loss.detach(), m, sample
+                      hr[0], wb[rows][0], cam2rgb[rows][0], pattern[rows][0])
+            loss = loss.detach()
+            if self.mesh is not None:
+                import torch.distributed as dist
+                both = torch.stack([loss, m])
+                dist.all_reduce(both, group=self.mesh.group)
+                loss, m = both / self.mesh.size
+        return loss, m, sample
 
     @torch.no_grad()
     def _eval_step(self, lr, hr, sigma):
@@ -339,7 +399,7 @@ class AWGNTrainer:
                 logfile=self.logfile)
             self.epoch = epoch
 
-            if epoch % hyper.get("save_freq", 10) == 0:
+            if epoch % hyper.get("save_freq", 10) == 0 and self.is_main:
                 self._save("last", epoch)
                 self._save(f"e{epoch // pf * pf:04d}", epoch,
                            directory=self.model_dir)
@@ -353,6 +413,8 @@ class AWGNTrainer:
                 self.eval(epoch=epoch)
 
     def _save(self, tag: str, epoch: int, directory: Optional[str] = None):
+        if not self.is_main:
+            return
         if tag.startswith("e"):
             path = os.path.join(directory or self.model_dir,
                                 f"{self.model_name}_{tag}.ckpt")
@@ -429,3 +491,24 @@ class AWGNTrainer:
             f"SSIM={self.eval_ssim.avg:.4f} (sigma={sig * 255:.0f})",
             logfile=self.logfile)
         return self.eval_psnr.avg, self.eval_ssim.avg
+
+
+def step_record(mesh, args: Dict[str, Any], batch, keys, lr_value: float,
+                field: str = "torch", device=None) -> Dict[str, Any]:
+    """One step of a fresh trainer (data parallel on `mesh`, or alone on
+    `device` when mesh is None) on the global `batch` with the step's
+    `keys`; returns its loss and PSNR and, per parameter (flax-free
+    torch names), the weights after the step, the gradient and both Adam
+    moments as numpy arrays: what the ranks' and the single trainer's
+    steps are compared by."""
+    tr = AWGNTrainer(args, device=device, field=field, mesh=mesh)
+    loss, m, _ = tr.train_step(batch, keys, lr_value)
+    st = tr.optimizer.state
+    rec = {"loss": float(loss), "psnr": float(m),
+           "p": {}, "g": {}, "mu": {}, "nu": {}}
+    for n, p in tr.model.named_parameters():
+        rec["p"][n] = p.detach().cpu().numpy()
+        rec["g"][n] = p.grad.detach().cpu().numpy()
+        rec["mu"][n] = st[p]["exp_avg"].cpu().numpy()
+        rec["nu"][n] = st[p]["exp_avg_sq"].cpu().numpy()
+    return rec

@@ -12,8 +12,9 @@ in electron units (gain 1).
 from __future__ import annotations
 
 import numpy as np
-from scipy.signal import convolve
-from scipy.stats import norm, poisson
+
+# scipy is imported where it is called: importing scipy.signal takes
+# seconds, and every process of a mesh imports this module
 
 
 def _vst_np(x, sigma, gain=1.0):
@@ -37,6 +38,8 @@ def pg_pdf_grid(lam, K, sigGs, r=5, pho=1, clip=False):
     r + 1): the Poisson pmf at the grid points (0 off the integers)
     convolved with the Gaussian pdf, renormalised to sum / pho == 1;
     clip folds the mass below 0 onto 0. Returns (x, pdf)."""
+    from scipy.signal import convolve
+    from scipy.stats import norm, poisson
     n = 2 * pho * r + 1
     x = np.linspace(-r, r, n)
     ps = poisson.pmf(x, lam / K)
@@ -82,6 +85,7 @@ def _m_table(k_max: int, sgs: np.ndarray, n_gauss: int = 4001,
              tail: float = 10.0) -> np.ndarray:
     """M[k, j] = E_g[VST_1(k + g; sg_j)] by a dense trapezoid over
     +-tail*sg; sg == 0 degenerates to VST_1(k)."""
+    from scipy.stats import norm
     ks = np.arange(k_max + 1, dtype=np.float64)
     M = np.empty((k_max + 1, len(sgs)), np.float64)
     for j, sg in enumerate(np.asarray(sgs, np.float64)):
@@ -101,6 +105,7 @@ def bias_points(lams: np.ndarray, sgs: np.ndarray,
                 k_sigma: float = 12.0, k_pad: int = 32) -> np.ndarray:
     """Exact separable bias over a (lam x sg) grid, electron units:
     bias[i, j]. k_max covers lam + k_sigma*sqrt(lam) + k_pad."""
+    from scipy.stats import poisson
     lams = np.asarray(lams, np.float64)
     sgs = np.asarray(sgs, np.float64)
     k_max = int(np.max(lams) + k_sigma * np.sqrt(np.max(lams) + 1) + k_pad)
