@@ -67,7 +67,14 @@ within 1%, PSNR within 0.05 dB), a crop of the route on the card rank
 against a CPU (gloo) rank, K1 against its plain version at the shard's
 halo-extended shape, and the gru32 trainer under DDP against the plain
 trainer for three steps; with two cards or more, the route and the
-trainer at world 2. Every phase prints one
+trainer at world 2. Phase 18 runs the ISP and the figure tools on the
+card: a product-path frame inside core.profiling.trace (the JSON names
+K1 3 times and cuDNN's convolutions), the demosaic and process_sidd_image
+on the 3072x4096 frame card vs CPU, SIDDEvalHarness with and without
+save_plot on 4 of phase 13's scenes (scenes/s, the PNGs read back,
+psnr_rgb card vs CPU), the trainer's sample dump against the CPU render
+of its sample, and guided_filter and row_denoise card vs CPU. Every
+phase prints one
 line with its elapsed seconds; any failure raises (exit code != 0). The
 last two lines are the kernels' JSON record and the device JSON record.
 With --out, each held-out column's eval_synth JSON is written into DIR.
@@ -154,6 +161,33 @@ K1_FLAVOURS = {"self": (True, True, 36), "collab_dn": (False, True, 16),
                "collab_lr": (False, False, 15)}
 
 
+def k1_err64(x, k, inner, flavours=K1_FLAVOURS) -> dict:
+    """K1's max abs error against its plain version in float64 (prefix
+    sums in float64), per flavour and map; tex as its square, the
+    pre-blurred plane's variance."""
+    from yondx_torch.nle import moments
+    out = {}
+    for flavour in flavours:
+        texture, mean, _ = K1_FLAVOURS[flavour]
+        got = moments.nle_moments(x, k, inner, texture, mean)
+        ref = moments.nle_moments_plain(x.double(), k, inner, texture, mean)
+        errs = {}
+        for key, gv, rv in zip(("mean", "var", "tex2"), got, ref):
+            if gv is not None:
+                gv = gv.double()
+                if key == "tex2":
+                    gv, rv = gv ** 2, rv ** 2
+                errs[key] = float((gv - rv).abs().max())
+        out[flavour] = errs
+        del got, ref
+    return out
+
+
+def fmt_err64(e: dict) -> str:
+    return "; ".join(f"{f} " + ", ".join(f"{m} {v:.2e}" for m, v in d.items())
+                     for f, d in e.items())
+
+
 def cuda_ms(fn, reps: int, flush=None) -> float:
     """Median time of fn() in ms from CUDA events, one event pair per
     synchronised call; `flush` runs untimed before each call (cold L2).
@@ -185,11 +219,19 @@ _GROUPS = (("K1 nle_moments", ("nle_moments",)),
 
 def profile_run(label: str, run) -> None:
     """One run() under torch.profiler: device busy time against the host
-    wall time, and device time by kernel group and top kernels."""
+    wall time, and device time by kernel group and top kernels (busy
+    holds the 9 tiny warm-up kernels, a few microseconds)."""
     from torch.profiler import ProfilerActivity, profile
+    from yondx_torch.core.profiling import WARMUP_KERNELS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # tiny kernels first, as core.profiling.trace launches them: a
+        # session after earlier ones missed its first two kernels
+        w = torch.zeros(1, device="cuda")
+        for _ in range(WARMUP_KERNELS):
+            w.add_(1)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -947,14 +989,18 @@ def est_k1_k19(bw, fp32) -> dict:
         t_bytes = 3 * 4 * n / bw * 1e3
         t_ops = n * K1_FLAVOURS["collab_dn"][2] / fp32 * 1e3
         bound = max(t_bytes, t_ops)
+        e64 = k1_err64(x, 19, 19, ("collab_dn",))["collab_dn"]
         say("est (b) K1 k=19", f"[{B},128,128,4] mean, var: max abs err "
-            f"mean {errs['mean']:.3e}, var {errs['var']:.3e}; {ms:.4f} ms, "
+            f"mean {errs['mean']:.3e}, var {errs['var']:.3e} (against "
+            f"float64: mean {e64['mean']:.2e}, var {e64['var']:.2e}); "
+            f"{ms:.4f} ms, "
             f"bound {bound:.4f} ms by "
             f"{'bytes' if t_bytes >= t_ops else 'operations'} "
             f"({3 * 4 * n / 1e6:.1f} MB), {ms / bound:.1f}x; plain "
             f"{plain:.4f} ms")
         rec[f"{B}x128x128x4"] = {"ms": ms, "plain_ms": plain,
                                  "bound_ms": bound, "max_abs_err": errs,
+                                 "err64": e64,
                                  "bound_by": "bytes" if t_bytes >= t_ops
                                  else "operations"}
     return rec
@@ -2037,9 +2083,9 @@ def k1_check(x, k, flush, bw, fp32, phase, label, reps=20,
     tolerances by default), each flavour timed (cold L2) beside its
     bound, the plain self flavour timed beside (timed=False: the check
     alone). ref_dtype=torch.float64 runs the plain version in float64
-    (planes so large that its float32 whole-plane prefix sums drift: the
-    float32 plain version's own error is printed beside) and prints where
-    each map's worst error lies; tex_sq compares tex as its square, the
+    (its prefix sums too: the float32 plain version's own error, which
+    grows with the plane, is printed beside) and prints where each map's
+    worst error lies; tex_sq compares tex as its square, the
     pre-blurred plane's variance, where tex falls near 0 and the square
     root would turn a variance error e into sqrt(e)."""
     from yondx_torch.nle import moments
@@ -2090,7 +2136,9 @@ def k1_check(x, k, flush, bw, fp32, phase, label, reps=20,
         t_bytes, t_ops = nbytes / bw * 1e3, x.numel() * ops / fp32 * 1e3
         rec[flavour] = {"ms": ms, "bound_ms": max(t_bytes, t_ops),
                         "bound_by": "bytes" if t_bytes >= t_ops
-                        else "operations", "max_abs_err": max(errs.values())}
+                        else "operations", "max_abs_err": max(errs.values()),
+                        "err64": errs if ref_dtype is torch.float64 else
+                        k1_err64(x, k, inner, (flavour,))[flavour]}
     if not timed:
         say(phase, f"{label}: max abs err " + "; ".join(
             f"{f} {r['max_abs_err']:.3e}" for f, r in rec.items())
@@ -2104,7 +2152,9 @@ def k1_check(x, k, flush, bw, fp32, phase, label, reps=20,
     say(phase, f"{label}: " +
         "; ".join(f"{f} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
                   f"{r['bound_by']} ({r['ms'] / r['bound_ms']:.1f}x), max "
-                  f"abs err {r['max_abs_err']:.3e}" for f, r in rec.items())
+                  f"abs err {r['max_abs_err']:.3e} (against float64: "
+                  + ", ".join(f"{m} {v:.2e}" for m, v in r["err64"].items())
+                  + ")" for f, r in rec.items())
         + f"; plain (self) {plain:.4f} ms"
         + ("" if ref_dtype is None else f"; reference: the plain version in "
            f"{ref_dtype}, against which the float32 plain version is off by "
@@ -2331,14 +2381,6 @@ def zoo_phase(noisy) -> dict:
 
 # ---------------------------------------------------------------- phase 17
 MESH_FRAME = (6144, 8192)        # 50.3 MP Bayer, [3072, 4096, 4] RGGB
-# K1 on image content (the frame's own rows: flat levels with noise and
-# step edges of up to 0.7) against the plain version in float64: each
-# tile's sums run on data shifted by one sample of the tile, and where
-# that sample lies across an edge from a dark flat, the flat's fp32
-# second moments cancel to a few 1e-6 (on an H100: var 4.7e-6 off where
-# the exact var is 6.5e-4; tex^2 4.9e-6). Random data at the same shape
-# is held to phase 3's tolerances.
-K1_CONTENT_TOL = {"mean": 1e-5, "var": 1e-5, "tex": 1e-5}
 
 
 def _noise_model_gap(r_a, r_b, mu) -> float:
@@ -2442,8 +2484,8 @@ def mesh_phase(bw, fp32) -> dict:
         CPU rank (gloo) by phase 9e's rule;
     (c) K1 against its plain version in float64 at the shard's
         halo-extended shape [1, 3130, 4096, 4]: on uniform data by phase
-        3's tolerances, on the shard's own rows by K1_CONTENT_TOL (timed
-        there beside its bound);
+        3's tolerances, and on the shard's own rows (timed there beside
+        its bound);
     (d) the gru32 trainer (GRU_5to50_norm_mix.yml: batch 64 of 256 px)
         under DDP at world 1, three steps, against the plain trainer's
         steps from the same init and draws (cuDNN deterministic, TF32
@@ -2583,8 +2625,7 @@ def mesh_phase(bw, fp32) -> dict:
                  ref_dtype=torch.float64, timed=False)
         k1 = k1_check(xe, k, scratch.zero_, bw, fp32, "phase 17 (c)",
                       f"K1 on the shard's rows {shape}", reps=10,
-                      plain_reps=3, ref_dtype=torch.float64,
-                      tol=K1_CONTENT_TOL, tex_sq=True)
+                      plain_reps=3, ref_dtype=torch.float64, tex_sq=True)
         rec["k1"] = dict(k1, shape=list(xe.shape))
         del xe, x, scratch
 
@@ -2673,6 +2714,325 @@ def mesh_phase(bw, fp32) -> dict:
                 f"machine has {n_cards}")
     dist.destroy_process_group()
     torch.backends.cudnn.benchmark = bench_mode
+    return rec
+
+
+# ---------------------------------------------------------------- phase 18
+
+# SIDD-like scene metadata for the sRGB renders: the RGGB CFA, an
+# as-shot white balance and a camera ColorMatrix2 of the kind the SIDD
+# metadata files carry
+SIDD_META = {"bayer_2by2": [[1, 2], [2, 3]], "wb": [0.5392, 1.0, 0.6074],
+             "cst2": [[1.0312, -0.4196, -0.0561], [-0.4458, 1.2753, 0.1905],
+                      [-0.0611, 0.1789, 0.6078]]}
+
+
+def _trace_kernels(logdir):
+    """(names of the CUDA kernel events, the file) of the one Chrome
+    trace JSON in logdir."""
+    files = [f for f in os.listdir(logdir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"trace wrote {files}, expected one JSON")
+    path = os.path.join(logdir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events
+            if e.get("cat") == "kernel"], path
+
+
+def trace_frame_child(frame_path: str, logdir: str) -> dict:
+    """The body of (a), run in a process of its own: the product path
+    (phase 5's configuration) on the frame, a warm-up, then one frame
+    inside core.profiling.trace; -> the trace's counts."""
+    from yondx_torch import cuda_build
+    from yondx_torch.core.profiling import trace
+    from yondx_torch.io.ckpt import find_checkpoint
+    from yondx_torch.isp.bayer import bayer2rggb
+    from yondx_torch.models.unets import load_guided_s2d
+    from yondx_torch.nle import moments
+    from yondx_torch.pipeline.fused import make_fused_blind_denoiser
+    from yondx_torch.vst.lut import BiasLUT
+    cuda_build.load_library()
+    net = load_guided_s2d(find_checkpoint(CKPTS,
+                                          "Gaussian_GRUS2DT_mix_1to50c_norm"),
+                          device="cuda", dtype=torch.bfloat16)
+    fused = make_fused_blind_denoiser(net, BiasLUT().lut,
+                                      compute_dtype=torch.bfloat16,
+                                      device="cuda", **PRODUCT)
+    rggb = bayer2rggb(torch.from_numpy(np.load(frame_path)).cuda())[None]
+    fused(rggb, 959.0)
+    torch.cuda.synchronize()
+    moments.reset_launches()
+    t = time.perf_counter()
+    with trace(logdir) as d:
+        fused(rggb, 959.0)
+    wall = time.perf_counter() - t
+    names, path = _trace_kernels(d)
+    conv = [n for n in names if any(w in n.lower() for w in _GROUPS[1][1])]
+    return {"launches": moments.LAUNCHES["nle_moments"],
+            "trace_k1_events": sum("nle_moments" in n for n in names),
+            "trace_conv_events": len(conv), "kernel_events": len(names),
+            "conv_example": conv[0][:60] if conv else None,
+            "json_mb": os.path.getsize(path) / 1e6, "wall_s": wall}
+
+
+def isp_trace_frame(noisy) -> dict:
+    """(a) one product-path frame inside core.profiling.trace, in a
+    process of its own (in this long-lived one, after phases 1-17, the
+    profiler's traces lost kernel events: 2250 of ~2270, one of them
+    K1's): the JSON names K1's kernel 3 times and cuDNN's
+    convolutions."""
+    with tempfile.TemporaryDirectory() as tmp:
+        frame = os.path.join(tmp, "frame.npy")
+        np.save(frame, noisy)
+        mod = os.path.splitext(os.path.basename(__file__))[0]
+        code = (f"import json, {mod} as c; print(json.dumps("
+                f"c.trace_frame_child({frame!r}, {os.path.join(tmp, 'tr')!r})))")
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code],
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"the traced frame's process failed:\n"
+                                 f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+        rec = json.loads(res.stdout.strip().splitlines()[-1])
+    say("phase 18 (a)", f"one product-path frame inside core.profiling."
+        f"trace, in a process of its own ({time.perf_counter() - t:.2f} s "
+        f"with its start, model load and warm-up; the traced frame "
+        f"{rec['wall_s']:.2f} s with the JSON's export): "
+        f"{rec['json_mb']:.1f} MB, {rec['kernel_events']} kernel events, K1 "
+        f"(nle_moments_kernel) {rec['trace_k1_events']}, convolution/gemm "
+        f"kernels {rec['trace_conv_events']} (e.g. {rec['conv_example']}); "
+        f"K1 launches {rec['launches']}")
+    if rec["trace_k1_events"] != 3 or rec["launches"] != 3 \
+            or not rec["trace_conv_events"]:
+        raise AssertionError("the trace does not name K1 3 times and "
+                             "cuDNN's convolutions")
+    return rec
+
+
+def isp_render_frame(noisy) -> dict:
+    """(b) the demosaic and process_sidd_image on the 3072x4096 frame on
+    the card against the CPU: the demosaic bit-equal, the render within
+    one level; each timed on the card."""
+    from yondx_torch.isp.demosaic import demosaic_ea
+    from yondx_torch.isp.render import process_sidd_image
+    m = SIDD_META
+    mosaic = (torch.from_numpy(noisy) * 16383).to(torch.int32)
+    dem_c = demosaic_ea(mosaic.cuda())
+    t = time.perf_counter()
+    dem_h = demosaic_ea(mosaic)
+    dem_cpu_s = time.perf_counter() - t
+    if not torch.equal(dem_c.cpu(), dem_h):
+        raise AssertionError("demosaic: card and CPU differ")
+    x = torch.from_numpy(noisy).cuda()
+    img_c = process_sidd_image(x, m["bayer_2by2"], m["wb"], m["cst2"])
+    t = time.perf_counter()
+    img_h = process_sidd_image(noisy, m["bayer_2by2"], m["wb"], m["cst2"])
+    cpu_s = time.perf_counter() - t
+    diff = np.abs(img_c.cpu().numpy().astype(np.int16) - img_h)
+    ms_dem = cuda_ms(lambda: demosaic_ea(mosaic.cuda()), 5)
+    ms_isp = cuda_ms(lambda: process_sidd_image(
+        x, m["bayer_2by2"], m["wb"], m["cst2"]), 5)
+    say("phase 18 (b)", f"demosaic {tuple(noisy.shape)} -> "
+        f"{tuple(dem_c.shape)} on the card {ms_dem:.2f} ms (the upload "
+        f"included; CPU {dem_cpu_s * 1e3:.0f} ms), bit-equal to the CPU; "
+        f"process_sidd_image {ms_isp:.2f} ms on the card (float64; CPU "
+        f"{cpu_s * 1e3:.0f} ms), {int((diff > 0).sum())} of {diff.size} "
+        f"values one level off the CPU, max {int(diff.max())}")
+    if diff.max() > 1 or img_c.shape != (*noisy.shape, 3):
+        raise AssertionError("process_sidd_image: card and CPU differ by "
+                             "more than one level")
+    return {"demosaic_ms": ms_dem, "process_sidd_image_ms": ms_isp,
+            "levels_off": int((diff > 0).sum())}
+
+
+class _MetaScenes:
+    """SIDD scenes in memory, each with SIDD_META."""
+
+    def __init__(self, noisy, clean):
+        self.noisy, self.clean = noisy, clean
+
+    def __len__(self):
+        return len(self.noisy)
+
+    def __getitem__(self, i):
+        return {"name": f"{i:04d}", "lr": self.noisy[i], "hr": self.clean[i],
+                "meta": dict(SIDD_META), "cfa": SIDD_META["bayer_2by2"]}
+
+
+def isp_sidd_figures(tmp, n=4) -> dict:
+    """(c) phase 13's SIDD fixture (its first n scenes) through the SIDD
+    runfile's engine and SIDDEvalHarness without and with save_plot:
+    scenes/s of each, the noisy, GT and per-round PNGs read back at
+    their shape, psnr_rgb on the card against a CPU harness scoring the
+    card's outputs on the first 2 scenes within 0.01 dB."""
+    from yondx_torch.cli import yond
+    from yondx_torch.core.png import read_png
+    from yondx_torch.eval.sidd import SIDDEvalHarness
+    from yondx_torch.nle import moments
+    shape = (n,) + EVAL_SHAPES["sidd"][1:]
+    noisy, clean, _ = sidd_blocks(shape)
+    ds = _MetaScenes(noisy, clean)
+    t = time.perf_counter()
+    # the CLI reads checkpoints/ and writes ./metrics/ and ./logs/ in the
+    # working directory
+    os.symlink(os.path.join(REPO, "checkpoints"),
+               os.path.join(tmp, "checkpoints"))
+    os.chdir(tmp)
+    rec = {}
+    try:
+        app = yond.YOND(["-f", _repo(SIDD_RUNFILE)])
+        log = os.path.join(tmp, "sidd_fig.log")
+        with _quiet(log):
+            SIDDEvalHarness(app.engine, _MetaScenes(noisy[:1], clean[:1]),
+                            "warm", max_iter=app.pipe.max_iter,
+                            cache_npy=False, logfile=log).run()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        moments.reset_launches()
+        for fig in (False, True):
+            h = SIDDEvalHarness(app.engine, ds, f"fig{int(fig)}",
+                                max_iter=app.pipe.max_iter, save_plot=fig,
+                                sample_dir=os.path.join(tmp, "sidd_images"),
+                                cache_npy=fig, logfile=log)
+            t = time.perf_counter()
+            with _quiet(log):
+                out = h.run()
+            torch.cuda.synchronize()
+            rec[f"scenes_s_{'figures' if fig else 'plain'}"] = \
+                n / (time.perf_counter() - t)
+        launches = moments.LAUNCHES["nle_moments"]
+        rounds = app.pipe.max_iter + 1
+        pngs = sorted(os.listdir(os.path.join(tmp, "sidd_images")))
+        want = sorted([f"{i:04d}_{r}.png" for i in range(n)
+                       for r in range(rounds)]
+                      + [f"{i:04d}_{k}.png" for i in range(n)
+                         for k in ("gt", "noisy")])
+        for f in pngs:
+            img = read_png(os.path.join(tmp, "sidd_images", f))
+            if img.shape != (shape[2], shape[1] * shape[3], 3):
+                raise AssertionError(f"{f}: shape {img.shape}")
+        # the CPU harness renders and scores the card's outputs
+        t = time.perf_counter()
+        cpu = SIDDEvalHarness(None, None, "cpu", max_iter=app.pipe.max_iter,
+                              save_plot=True,
+                              sample_dir=os.path.join(tmp, "cpu_images"),
+                              logfile=log)
+        gaps = []
+        for i in range(2):
+            raw = np.load(os.path.join("npy", "fig1", f"{i:03d}.npy"))
+            with _quiet(log):
+                cpu._score_scene(f"{i:04d}", list(raw), noisy[i], clean[i],
+                                 dict(SIDD_META))
+            gaps += [abs(a - b) for a, b in zip(
+                h.metrics[f"{i:04d}"]["psnr_rgb"],
+                cpu.metrics[f"{i:04d}"]["psnr_rgb"])]
+        cpu_s = time.perf_counter() - t
+        say("phase 18 (c)", f"engine and a warm-up scene {setup_s:.2f} s; "
+            f"the CPU's render and scores of 2 scenes {cpu_s:.2f} s; "
+            f"SIDD eval of {n} scenes of {list(shape[1:])}: "
+            f"{rec['scenes_s_plain']:.2f} scenes/s without figures, "
+            f"{rec['scenes_s_figures']:.2f} with (save_plot: the noisy, GT "
+            f"and {rounds} round PNGs a scene, {len(pngs)} PNGs of "
+            f"{shape[2]}x{shape[1] * shape[3]} read back); sRGB "
+            f"PSNR/SSIM per round {[round(v, 4) for v in out['psnr_rgb']]} / "
+            f"{[round(v, 4) for v in out['ssim_rgb']]}; raw "
+            f"{[round(v, 4) for v in out['psnr']]}; psnr_rgb card vs CPU "
+            f"on 2 scenes max {max(gaps):.2e} dB; K1 launches {launches}")
+        if pngs != want or max(gaps) > 0.01 or launches != 3 * 2 * n:
+            raise AssertionError("SIDD figures: PNGs missing, psnr_rgb card "
+                                 "vs CPU over 0.01 dB, or K1 count wrong")
+        rec.update({"launches": launches, "psnr_rgb": out["psnr_rgb"],
+                    "psnr_rgb_gap_db": max(gaps)})
+    finally:
+        os.chdir(REPO)
+    return rec
+
+
+def isp_train_dump(tmp) -> dict:
+    """(d) phase 10b's trainer (GRU_5to50_norm_mix.yml, batch 64 of 256
+    px, one step) writes its temp_*.png; read back at the shape its
+    sample's CFA gives ([256, 768, 3] at an even turn, [768, 256, 3] at
+    an odd one) and within one level of the CPU render of the same
+    sample."""
+    import glob
+    import types
+    from yondx_torch.core.png import read_png
+    from yondx_torch.train import AWGNTrainer
+    args = _train_args(TRAIN_RUNFILE, tmp, dst_train={"synthetic_len": 64},
+                       dst_eval={"synthetic_len": 64})
+    tr = AWGNTrainer(args, device="cuda", field="torch")
+    seen = []
+    card_dump = tr._dump_temp_sample
+
+    def dump(sample, epoch, pf):
+        seen.append(([t.detach().cpu().clone() for t in sample], epoch, pf))
+        card_dump(sample, epoch, pf)
+    tr._dump_temp_sample = dump
+    os.chdir(tmp)                       # the trainer's ./logs/
+    try:
+        with _quiet(os.path.join(tmp, "train.log")):
+            tr.train(stop_epoch=1)
+    finally:
+        os.chdir(REPO)
+    with open(os.path.join(tmp, "train.log")) as f:
+        skipped = "sample dump skipped" in f.read()
+    files = glob.glob(os.path.join(tr.sample_dir, "temp", "temp_*.png"))
+    if len(files) != 1 or not seen:
+        raise AssertionError(f"the trainer wrote {files}")
+    got = read_png(files[0])
+    sample, epoch, pf = seen[0]
+    me = types.SimpleNamespace(sample_dir=os.path.join(tmp, "cpu"),
+                               logfile=os.path.join(tmp, "cpu.log"))
+    AWGNTrainer._dump_temp_sample(me, sample, epoch, pf)
+    ref = read_png(glob.glob(os.path.join(tmp, "cpu", "temp",
+                                          "temp_*.png"))[0])
+    turn = int((4 - int(sample[5])) % 4)
+    want = (256, 768, 3) if turn % 2 == 0 else (768, 256, 3)
+    diff = np.abs(got.astype(np.int16) - ref)
+    say("phase 18 (d)", f"the trainer's sample dump "
+        f"{os.path.basename(files[0])}: {got.shape} {got.dtype} (the CFA "
+        f"turned back by {turn}), {int((diff > 0).sum())} values one level "
+        f"off the CPU render of the same sample, max {int(diff.max())}")
+    if got.shape != want or diff.max() > 1 or skipped or \
+            os.path.exists(me.logfile):
+        raise AssertionError("trainer dump: shape or pixels wrong")
+    return {"shape": list(got.shape), "levels_off": int((diff > 0).sum())}
+
+
+def isp_filters_frame(noisy) -> dict:
+    """(e) guided_filter (d 7, eps 1) and row_denoise (iso 800) on the
+    3072x4096 frame, card against CPU within 1e-5."""
+    from yondx_torch.isp.filters import guided_filter, row_denoise
+    x = torch.from_numpy(noisy)
+    xc = x.cuda()
+    errs, ms = {}, {}
+    for name, fn in (("guided_filter", lambda t: guided_filter(t, t)),
+                     ("row_denoise", lambda t: row_denoise(t, 800.0))):
+        errs[name] = float((fn(xc).cpu() - fn(x)).abs().max())
+        ms[name] = cuda_ms(lambda: fn(xc), 5)
+    say("phase 18 (e)", f"on {tuple(noisy.shape)}: " + "; ".join(
+        f"{k} {ms[k]:.2f} ms on the card, max abs err against the CPU "
+        f"{errs[k]:.2e}" for k in errs))
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"filters: card vs CPU {errs} > 1e-5")
+    return {"ms": ms, "max_abs_err": errs}
+
+
+def isp_phase(noisy) -> dict:
+    """Phase 18: the ISP and the figure tools on the card, (a)-(e), in a
+    temporary directory."""
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fn in (("(a)", lambda: isp_trace_frame(noisy)),
+                          ("(b)", lambda: isp_render_frame(noisy)),
+                          ("(c)", lambda: isp_sidd_figures(tmp)),
+                          ("(d)", lambda: isp_train_dump(tmp)),
+                          ("(e)", lambda: isp_filters_frame(noisy))):
+            t = time.perf_counter()
+            rec[label.strip("()")] = fn()
+            say("phase 18", f"{label} in {time.perf_counter() - t:.2f} s")
     return rec
 
 
@@ -2807,6 +3167,10 @@ def main(argv=None) -> dict:
                        flush)
     ms_plain_w = cuda_ms(lambda: moments.nle_moments_plain(frame_a, k,
                                                            inner), 5, flush)
+    # K1's error against the plain version in float64 at each timed shape
+    err64 = {"a": k1_err64(x_a, k, inner), "w": k1_err64(frame_a, k, inner),
+             **{lab[0]: k1_err64(x, k, inner) for lab, x in cases
+                if lab[0] in "hi"}}
     for label, tim, plain in (("a", timing, ms_plain),
                               ("w", timing_w, ms_plain_w),
                               *((lab, tim, None)
@@ -2816,7 +3180,9 @@ def main(argv=None) -> dict:
                 f"{f} {ms:.4f} ms, bound {b:.4f} ms by {by} "
                 f"({mb / 1e6:.1f} MB), {ms / b:.1f}x"
                 for f, (ms, b, by, mb) in tim.items())
-            + (f"; plain (self) {plain:.4f} ms" if plain else ""))
+            + (f"; plain (self) {plain:.4f} ms" if plain else "")
+            + "; max abs err against float64: "
+            + fmt_err64(err64[label[0]]))
     del scratch, frame_a, x_a, cases
 
     # 4. card path against the port's CPU path, end to end ------------------
@@ -2951,6 +3317,9 @@ def main(argv=None) -> dict:
                              for f in phase17["k1"].values()
                              if isinstance(f, dict)))
 
+    # 18. the ISP and the figure tools --------------------------------------
+    phase18 = isp_phase(noisy)
+
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
         "source": "yondx_torch/csrc/nle_moments.cu",
@@ -2958,6 +3327,10 @@ def main(argv=None) -> dict:
         "launches": launches, "max_abs_err": max_err,
         "ms": ms_k1, "plain_ms": ms_plain, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
+        # against the plain version in float64, per flavour and map, at
+        # each timed shape of phase 3 (a: bands, w: whole planes, h and i:
+        # crop stacks)
+        "err64": err64,
         # the engine's shape: whole planes, 3 launches a frame on the CLI
         # path (self 1, collab 2)
         "whole_plane": {
@@ -2995,7 +3368,12 @@ def main(argv=None) -> dict:
         # a frame on each rank's halo rows: the CLI run and 2 timed
         # frames), K1 against its plain version at the shard's shape
         # [1, 3130, 4096, 4]
-        "phase17": phase17}]}
+        "phase17": phase17,
+        # phase 18: the product frame traced through core.profiling (3),
+        # the SIDD eval with and without figures (3 a scene)
+        "phase18": {"launches": {"trace_frame": phase18["a"]["launches"],
+                                 "sidd_figures": phase18["c"]["launches"]},
+                    **phase18}}]}
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

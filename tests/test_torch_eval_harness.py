@@ -235,23 +235,36 @@ def test_sidd_write_submission_matches_jax(tmp_path):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_sidd_save_plot_raises_citing_item_7(tmp_path, monkeypatch):
-    """The sRGB branch needs isp/render (ROADMAP item 7): asked for on a
-    scene with metadata it raises before the scene is denoised; without
-    metadata there is nothing to render."""
+def test_sidd_save_plot_writes_pngs_and_scores_srgb(tmp_path, monkeypatch):
+    """save_plot on a scene with metadata: the noisy, GT and each round's
+    sRGB PNG of the crop strip, read back at [H, crops * W, 3], and
+    psnr_rgb / ssim_rgb in the scene's record, per round, and in the
+    returned means (tests/test_torch_viz.py holds their values to
+    JAX's)."""
     monkeypatch.chdir(tmp_path)
-
-    class _Meta:
-        def __len__(self):
-            return 1
-
-        def __getitem__(self, i):
-            return {"name": "0000", "lr": np.zeros((1, 8, 8), np.float32),
-                    "meta": {"bayer_2by2": [[1, 2], [2, 3]]}}
-
-    h = t_sidd.SIDDEvalHarness(None, _Meta(), "plot", save_plot=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        h.run()
+    from yondx_torch.core.png import read_png
+    rng = np.random.default_rng(8)
+    hr = rng.random((3, 32, 32)).astype(np.float32) * 0.5 + 0.2
+    dn = [hr + rng.normal(0, s, hr.shape).astype(np.float32)
+          for s in (0.02, 0.01)]
+    meta = {"bayer_2by2": [[2, 1], [3, 2]], "wb": [0.5, 1.0, 0.6],
+            "cst2": np.eye(3) * 0.9 + 0.05}
+    h = t_sidd.SIDDEvalHarness(None, None, "plot", max_iter=1,
+                               save_plot=True,
+                               sample_dir=str(tmp_path / "img"),
+                               logfile=str(tmp_path / "l"))
+    h._score_scene("0123_s", dn, dn[0], hr, meta)
+    names = sorted(os.listdir(tmp_path / "img"))
+    assert names == ["0123_0.png", "0123_1.png", "0123_gt.png",
+                     "0123_noisy.png"]
+    for n in names:
+        img = read_png(str(tmp_path / "img" / n))
+        assert img.shape == (32, 96, 3) and img.dtype == np.uint8
+    rec = h.metrics["0123_s"]
+    assert len(rec["psnr_rgb"]) == len(rec["ssim_rgb"]) == 2
+    assert rec["psnr_rgb"][1] > rec["psnr_rgb"][0] > 20
+    assert all(0 < s <= 1 for s in rec["ssim_rgb"])
+    assert h.psnrs_rgb[-1].avg == rec["psnr_rgb"][-1]
 
 
 # ------------------------------------------------------------- fullframe

@@ -1,8 +1,9 @@
 """The card machine has torch, numpy and scipy but no jax, flax, msgpack,
-PyYAML, cv2 or h5py, and the port must never reach the JAX package. In a
-fresh interpreter whose import system refuses those packages, every
-module of yondx_torch and chip_smoke.py must import (readers that need
-h5py import it when called, and raise naming it where it is absent).
+PyYAML, cv2, h5py, matplotlib or PIL, and the port must never reach the
+JAX package. In a fresh interpreter whose import system refuses those
+packages, every module of yondx_torch and chip_smoke.py must import
+(readers and figures that need h5py, cv2 or matplotlib import it when
+called, and raise naming it where it is absent).
 """
 import os
 import pkgutil
@@ -17,7 +18,7 @@ SCRIPT = r"""
 import importlib, importlib.util, pkgutil, sys
 
 REFUSED = {"jax", "jaxlib", "flax", "msgpack", "yaml", "yondx", "cv2",
-           "h5py"}
+           "h5py", "matplotlib", "PIL"}
 
 
 class Refuse:
@@ -58,6 +59,11 @@ def test_port_imports_without_jax_flax_msgpack_yaml_or_yondx():
     want = ["yondx_torch"] + [m.name for m in pkgutil.walk_packages(
         yondx_torch.__path__, "yondx_torch.")]
     assert res.stdout.split() == want
+    # the ISP and the figure tools are among them
+    for name in ("core.png", "core.profiling", "isp.demosaic", "isp.render",
+                 "isp.raw_io", "isp.filters", "eval.visualization",
+                 "eval.debugger"):
+        assert f"yondx_torch.{name}" in want
 
 
 TRAINING = ["yondx_torch.train", "yondx_torch.train.trainer",

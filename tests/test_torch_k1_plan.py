@@ -204,3 +204,65 @@ def test_k1_plan_constant_plane_is_exact():
     m, v, t = k1_plan(x, K, INNER, True, True)
     assert torch.equal(m, x)
     assert float(v.abs().max()) == 0.0 and float(t.abs().max()) == 0.0
+
+
+def _content(h, w, seed):
+    """Image content as chip_smoke.py's make_frame makes it, as RGGB
+    planes: flat levels in [0.05, 0.75) with Poisson-Gaussian noise and
+    step edges between them."""
+    rng = np.random.default_rng(seed)
+    levels = rng.random((4, 6)) * 0.7 + 0.05
+    clean = np.kron(levels, np.ones((2 * h // 4, 2 * w // 6)))
+    noisy = (8.74 * rng.poisson(clean * 959.0 / 8.74)
+             + rng.normal(0, 12.81, clean.shape)) / 959.0
+    bayer = np.clip(noisy, 0, 1).astype(np.float32)
+    return bayer.reshape(h, 2, w, 2).transpose(0, 2, 1, 3).reshape(1, h, w, 4)
+
+
+def _direct64(x, k, inner):
+    """(mean, var, tex^2) from float64 direct box sums, reflect-101."""
+    def box(a, n):
+        p = n // 2
+        for ax in (1, 2):
+            a = np.pad(a, [(0, 0)] * ax + [(p, p)] + [(0, 0)] * (3 - ax),
+                       mode="reflect")
+            cs = np.cumsum(a, axis=ax)
+            cs = np.concatenate([np.zeros_like(np.take(cs, [0], axis=ax)),
+                                 cs], axis=ax)
+            m = a.shape[ax] - 2 * p
+            a = (np.take(cs, np.arange(n, n + m), axis=ax)
+                 - np.take(cs, np.arange(m), axis=ax)) / n
+        return a
+    x = x.astype(np.float64)
+    m = box(x, k)
+    t1 = box(x, inner)
+    tm = box(t1, k)
+    return m, box(x * x, k) - m * m, box(t1 * t1, k) - tm * tm
+
+
+def test_plain_version_in_float64_is_float64():
+    """The plain version keeps float64 input in float64 through its
+    prefix sums: the reference chip_smoke.py holds K1 to on the card,
+    where a float32 scan over the 50.3 MP frame's columns of image
+    content drifted 7.5e-6 in the mean and 4.7e-6 in var. Against float64
+    direct sums within 1e-12."""
+    from yondx_torch.nle.boxfilter import nle_moments
+    x = _content(96, 150, 1)
+    m, v, t = nle_moments(torch.from_numpy(x).double(), K, INNER)
+    assert m.dtype == v.dtype == t.dtype == torch.float64
+    rm, rv, rt = _direct64(x, K, INNER)
+    for g, r in ((m, rm), (v, rv), (t ** 2, rt)):
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=1e-12)
+
+
+def test_k1_plan_on_image_content_meets_k1_tol():
+    """K1's plan on image content (flat levels, noise, step edges of up
+    to 0.7, the shift often across an edge from a dark flat) against
+    float64 within chip_smoke.py's K1_TOL (mean 1e-5, var 1e-6; tex^2
+    held to the var bound, tex near 0 on the flats)."""
+    x = _content(200, 390, 2)
+    m, v, t = k1_plan(torch.from_numpy(x), K, INNER, True, True)
+    rm, rv, rt = _direct64(x, K, INNER)
+    assert np.abs(m.numpy() - rm).max() < 1e-5
+    assert np.abs(v.numpy() - rv).max() < 1e-6
+    assert np.abs(t.numpy().astype(np.float64) ** 2 - rt).max() < 1e-6

@@ -1,7 +1,9 @@
 """Multi-format frame loader (port of yondx/core/io.py).
 
 Formats: .npy, .mat (scipy.io; MATLAB v7.3 files through h5py, key 'x'
-or the first key), .png/.jpg/.bmp (BGR -> RGB through cv2), .raw (fixed
+or the first key), .png (the port's own reader, core/png.py, in the
+channel order the JAX package's cv2.imread + BGR -> RGB gives),
+.jpg/.bmp (BGR -> RGB through cv2), .raw (fixed
 1440x2560 uint16). Camera raws (.ARW/.DNG/.NEF/.CR2) need rawpy. cv2,
 h5py and rawpy are optional: a format whose package is absent raises
 ImportError.
@@ -11,6 +13,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from .png import read_png
 
 RAW_EXTS = {".arw", ".dng", ".nef", ".cr2"}
 
@@ -38,7 +42,17 @@ def dataload(path: str):
                 return np.array(f[key]).T
         keys = [k for k in mat if not k.startswith("__")]
         return mat["x"] if "x" in mat else mat[keys[0]]
-    if ext in (".png", ".jpg", ".jpeg", ".bmp"):
+    if ext == ".png":
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        img = read_png(path)
+        if img.ndim == 3 and img.shape[2] == 2:     # gray + alpha
+            img = img[:, :, (0, 0, 0, 1)]
+        # cv2.imread's BGR(A) reversed, as the JAX package returns it:
+        # RGB, and A R G B for four channels
+        return img[:, :, (3, 0, 1, 2)] if img.ndim == 3 \
+            and img.shape[2] == 4 else img
+    if ext in (".jpg", ".jpeg", ".bmp"):
         cv2 = _need("cv2", ext)
         img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
         if img is None:

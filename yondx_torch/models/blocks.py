@@ -152,3 +152,87 @@ class ResBlockSiLU(nn.Module):
         x = self.short_cut(x)
         z = self.conv2(F.silu(self.conv1(F.silu(x))))
         return z + x
+
+
+class ChannelAttention(nn.Module):
+    """Squeeze-excite channel gate [B, C, 1, 1]: a shared bias-free
+    two-layer MLP over the avg- and max-pooled descriptors, sigmoid."""
+
+    def __init__(self, channels: int, ratio: int = 16):
+        super().__init__()
+        hidden = max(channels // ratio, 1)
+        self.mlp_in = nn.Linear(channels, hidden, bias=False)
+        self.mlp_out = nn.Linear(hidden, channels, bias=False)
+
+    def forward(self, x):
+        def mlp(v):
+            return self.mlp_out(F.relu(self.mlp_in(v)))
+        gate = mlp(torch.mean(x, dim=(2, 3))) + mlp(torch.amax(x, dim=(2, 3)))
+        return torch.sigmoid(gate)[:, :, None, None]
+
+
+class SpatialAttention(nn.Module):
+    """Spatial gate [B, 1, H, W]: a bias-free conv over the channel mean
+    and max, sigmoid."""
+
+    def __init__(self, kernel_size: int = 3):
+        super().__init__()
+        self.conv = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
+                              bias=False)
+
+    def forward(self, x):
+        h = torch.cat([torch.mean(x, dim=1, keepdim=True),
+                       torch.amax(x, dim=1, keepdim=True)], dim=1)
+        return torch.sigmoid(self.conv(h))
+
+
+class CBAM(nn.Module):
+    """Convolutional block attention: the channel gate, then the spatial
+    gate."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.ca = ChannelAttention(channels)
+        self.sa = SpatialAttention()
+
+    def forward(self, x):
+        x = self.ca(x) * x
+        return self.sa(x) * x
+
+
+def mask_mul(x, mask, scale_factor: int = 1):
+    """Masked feature gating (NCHW): the mask's channel mean where the
+    widths differ, average-pooled down by scale_factor, times x."""
+    if mask.shape[1] != x.shape[1]:
+        mask = torch.mean(mask, dim=1, keepdim=True)
+    if scale_factor > 1:
+        mask = F.avg_pool2d(mask, scale_factor, scale_factor)
+    return x * mask
+
+
+class UpsampleBlock(nn.Module):
+    """conv -> upsample by up_scale -> relu. mode 'pixel_shuffle': a conv
+    to cin * r^2 channels, then depth-to-space with flax's channel order
+    (r, r, c) (torch's pixel_shuffle orders (c, r, r)); 'bilinear': a
+    conv to `features`, then a bilinear resize (half-pixel centers)."""
+
+    def __init__(self, cin: int, features: int, up_scale: int = 2,
+                 mode: str = "bilinear"):
+        super().__init__()
+        if mode not in ("pixel_shuffle", "bilinear"):
+            raise NotImplementedError(mode)
+        self.r, self.mode = up_scale, mode
+        self.conv = conv3x3(cin, cin * up_scale ** 2
+                            if mode == "pixel_shuffle" else features)
+
+    def forward(self, x):
+        r = self.r
+        h = self.conv(x)
+        if self.mode == "pixel_shuffle":
+            B, _, H, W = h.shape
+            h = h.reshape(B, r, r, -1, H, W).permute(0, 3, 4, 1, 5, 2)
+            h = h.reshape(B, -1, H * r, W * r)
+        else:
+            h = F.interpolate(h, scale_factor=r, mode="bilinear",
+                              align_corners=False)
+        return F.relu(h)

@@ -1,13 +1,16 @@
-"""The host BM3D (port of yondx/native/__init__.py's `bm3d`).
+"""Host C++ of the port: the BM3D (port of yondx/native/__init__.py's
+`bm3d`) and the host filters `box_mean`, `local_moments` and
+`bilateral_row` (its other three).
 
-`csrc/bm3d_host.cpp`, the port's own copy of the JAX package's two BM3D
-stages, is compiled on first use with the host C++ compiler into
-`_build/` under a name carrying the hash of the source and the flags
-(written atomically, so concurrent processes may build at once), with the
-JAX package's flags, so that the two builds on one machine agree to the
-bit. A missing compiler or a failed build raises. The calls run on the
-host on float32 numpy planes; ctypes releases the GIL for each, so the
-callers may run planes on several threads.
+Each source under `csrc/` (`bm3d_host.cpp`, `host_filters.cpp`, the
+port's own copies of the JAX package's C++) is compiled on first use
+with the host C++ compiler into `_build/` under a name carrying the hash
+of the source and the flags (written atomically, so concurrent processes
+may build at once), with the JAX package's flags, so that the two builds
+on one machine agree to the bit. A missing compiler or a failed build
+raises. The calls run on the host on float32 numpy planes; ctypes
+releases the GIL for each, so the callers may run planes on several
+threads.
 """
 from __future__ import annotations
 
@@ -22,42 +25,63 @@ import numpy as np
 
 from .cuda_build import BUILD_DIR, SRC_DIR
 
-_SRC = SRC_DIR / "bm3d_host.cpp"
 _CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 _lock = threading.Lock()
-_lib = None
+_libs = {}
+
+
+def _build(name: str) -> ctypes.CDLL:
+    """Load `csrc/<name>.cpp`'s library, building it where it is missing
+    (under the lock)."""
+    src_path = SRC_DIR / f"{name}.cpp"
+    src = src_path.read_bytes()
+    tag = hashlib.sha256(src + " ".join(_CXXFLAGS).encode()).hexdigest()
+    path = BUILD_DIR / f"libyondx_torch_{name.split('_')[0]}-{tag[:16]}.so"
+    if not path.exists():
+        cxx = os.environ.get("CXX") or shutil.which("g++") \
+            or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError("no host C++ compiler (g++, c++) to build "
+                               f"{src_path.name}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        res = subprocess.run([cxx, *_CXXFLAGS, "-o", str(tmp), str(src_path),
+                              "-lpthread"], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{cxx} failed on {src_path.name}:\n"
+                               f"{res.stdout}")
+        os.replace(tmp, path)
+    return ctypes.CDLL(str(path))
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
+    """The BM3D library (csrc/bm3d_host.cpp), bound."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src + " ".join(_CXXFLAGS).encode()).hexdigest()
-        path = BUILD_DIR / f"libyondx_torch_bm3d-{tag[:16]}.so"
-        if not path.exists():
-            cxx = os.environ.get("CXX") or shutil.which("g++") \
-                or shutil.which("c++")
-            if cxx is None:
-                raise RuntimeError("no host C++ compiler (g++, c++) to build "
-                                   f"{_SRC.name}")
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            res = subprocess.run([cxx, *_CXXFLAGS, "-o", str(tmp), str(_SRC),
-                                  "-lpthread"], stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"{cxx} failed on {_SRC.name}:\n"
-                                   f"{res.stdout}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.bm3d_ht_f32.argtypes = [p, p, i, i, f, f]
-        lib.bm3d_wiener_f32.argtypes = [p, p, p, i, i, f]
-        lib.bm3d_ht_f32.restype = lib.bm3d_wiener_f32.restype = None
-        _lib = lib
-        return lib
+        if "bm3d" not in _libs:
+            lib = _build("bm3d_host")
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.bm3d_ht_f32.argtypes = [p, p, i, i, f, f]
+            lib.bm3d_wiener_f32.argtypes = [p, p, p, i, i, f]
+            lib.bm3d_ht_f32.restype = lib.bm3d_wiener_f32.restype = None
+            _libs["bm3d"] = lib
+        return _libs["bm3d"]
+
+
+def _filters() -> ctypes.CDLL:
+    """The host filters' library (csrc/host_filters.cpp), bound."""
+    with _lock:
+        if "filters" not in _libs:
+            lib = _build("host_filters")
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.box_mean_f32.argtypes = [p, p, i, i, i, i]
+            lib.local_moments_f32.argtypes = [p, p, p, i, i, i, i]
+            lib.bilateral_row_f32.argtypes = [p, p, i, i, f, f]
+            for fn in (lib.box_mean_f32, lib.local_moments_f32,
+                       lib.bilateral_row_f32):
+                fn.restype = None
+            _libs["filters"] = lib
+        return _libs["filters"]
 
 
 def _ptr(a: np.ndarray):
@@ -83,4 +107,49 @@ def bm3d(img: np.ndarray, sigma: float, lambda3d: float = 2.7,
         return pilot
     out = np.empty_like(x)
     lib.bm3d_wiener_f32(_ptr(x), _ptr(pilot), _ptr(out), H, W, float(sigma))
+    return out
+
+
+def _planes(img: np.ndarray):
+    """[H, W] or [H, W, C] -> contiguous float32 [C, H, W] planes."""
+    squeeze = img.ndim == 2
+    x = np.ascontiguousarray(
+        (img[..., None] if squeeze else img).transpose(2, 0, 1), np.float32)
+    return x, squeeze
+
+
+def _unplanes(x: np.ndarray, squeeze: bool) -> np.ndarray:
+    x = x.transpose(1, 2, 0)
+    return x[..., 0] if squeeze else x
+
+
+def box_mean(img: np.ndarray, k: int) -> np.ndarray:
+    """Reflect-101 k x k box mean of a float32 [H, W] or [H, W, C]
+    image, by running sums on the host."""
+    x, squeeze = _planes(img)
+    out = np.empty_like(x)
+    C, H, W = x.shape
+    _filters().box_mean_f32(_ptr(x), _ptr(out), C, H, W, k)
+    return _unplanes(out, squeeze)
+
+
+def local_moments(img: np.ndarray, k: int):
+    """(mean, max(E[x^2] - mean^2, 0)) k x k maps of a float32 [H, W] or
+    [H, W, C] image."""
+    x, squeeze = _planes(img)
+    mean, var = np.empty_like(x), np.empty_like(x)
+    C, H, W = x.shape
+    _filters().local_moments_f32(_ptr(x), _ptr(mean), _ptr(var), C, H, W, k)
+    return _unplanes(mean, squeeze), _unplanes(var, squeeze)
+
+
+def bilateral_row(signal: np.ndarray, d: int = 25,
+                  sigma_color: float = 10.0,
+                  sigma_space: float = 1.0) -> np.ndarray:
+    """1-D bilateral of a [N] float32 signal (cv2's weights, radius
+    d // 2, replicated ends)."""
+    x = np.ascontiguousarray(signal, np.float32)
+    out = np.empty_like(x)
+    _filters().bilateral_row_f32(_ptr(x), _ptr(out), x.shape[0], d,
+                                 sigma_color, sigma_space)
     return out

@@ -4,7 +4,9 @@ yondx/nle/boxfilter.py), and `np_box_mean`, a numpy box mean of the
 port's own in place of the JAX package's cv2.blur.
 
 Prefix sums run on per-plane centered data, so fp32 cancellation stays
-~1e-6 on 2k-pixel rows. Layout: [..., H, W, C] (or [H, W] for box_mean).
+~1e-6 on 2k-pixel rows of the CPU; on the card they accumulate in
+float64 (see _box1d_cumsum). Layout: [..., H, W, C] (or [H, W] for
+box_mean).
 """
 from __future__ import annotations
 
@@ -15,18 +17,26 @@ from ..core.tiling import reflect_pad
 
 
 def _box1d_cumsum(x, k: int, axis: int):
-    """Sliding-window mean along `axis` by prefix sums, reflect-101."""
+    """Sliding-window mean along `axis` by prefix sums, reflect-101;
+    float64 in float64 out, float32 otherwise. The prefix sums run in
+    float64 for float64 input and on a CUDA device: the card's float32
+    scan accumulates in float32, and its prefix sums over a 4096-px row
+    of flats and edges (centered data up to ~0.35 from the plane's mean)
+    reach ~1e3, where one ulp over a 29-px window is 2e-6 (the CPU's
+    scan accumulates in float64 and rounds each prefix to float32)."""
     pad = k // 2
     axis = axis % x.ndim
     xp = reflect_pad(x, axis, pad, pad)
-    cs = torch.cumsum(xp.float(), dim=axis)
+    out = torch.float64 if xp.dtype == torch.float64 else torch.float32
+    acc = torch.float64 if xp.is_cuda else out
+    cs = torch.cumsum(xp.to(acc), dim=axis)
     zshape = list(cs.shape)
     zshape[axis] = 1
     cs = torch.cat([cs.new_zeros(zshape), cs], dim=axis)
     n = x.shape[axis]
     hi = cs.narrow(axis, k, n)
     lo = cs.narrow(axis, 0, n)
-    return (hi - lo) * (1.0 / k)
+    return ((hi - lo) * (1.0 / k)).to(out)
 
 
 def _box2d(x, k: int):

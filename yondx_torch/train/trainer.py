@@ -426,12 +426,32 @@ class AWGNTrainer:
                         self.best_psnr)
 
     def _dump_temp_sample(self, sample, epoch: int, pf: int):
-        """The periodic training triptych (noisy | prediction | GT of the
-        first crop, `sample`) needs the ISP renderer, which the port does
-        not have yet (isp/render, ROADMAP item 7): it logs that it
-        skipped, as the JAX package does where cv2 is missing."""
-        log(f"sample dump skipped (epoch {epoch // pf * pf:04d}): the ISP "
-            "renderer is not ported", logfile=self.logfile)
+        """The periodic training triptych: noisy | prediction | GT of the
+        first crop (`sample`), its CFA turned back and rendered by
+        fast_isp on the trainer's device, written over
+        samples/temp/temp_{epoch bucket:04d}.png (core/png.py). Never
+        fatal: a failure logs that the dump was skipped."""
+        try:
+            from ..core.png import write_png
+            from ..isp.bayer import bayer_aug
+            from ..isp.render import fast_isp
+            noisy, pred, hr, wb, cam2rgb, pattern = sample
+            trip = torch.cat([noisy, pred, hr], dim=1).detach()
+            if trip.shape[-1] == 4:
+                trip = bayer_aug(trip, int((4 - int(pattern)) % 4))
+                img = fast_isp(trip, wb=wb.reshape(-1),
+                               ccm=cam2rgb.reshape(3, 3).double().cpu()
+                               .numpy())
+            else:
+                img = torch.clamp(trip, 0, 1)
+            out_dir = os.path.join(self.sample_dir, "temp")
+            os.makedirs(out_dir, exist_ok=True)
+            fname = os.path.join(out_dir,
+                                 f"temp_{epoch // pf * pf:04d}.png")
+            write_png(fname, (img * 255).to(torch.uint8).cpu().numpy())
+        except Exception as e:  # a figure never stops training
+            log(f"sample dump skipped: {type(e).__name__}: {e}",
+                logfile=self.logfile)
 
     def predict(self, raw_bayer, tile: int = 1024, halo: int = 64,
                 t: float = 0.0):
