@@ -73,10 +73,21 @@ K1 3 times and cuDNN's convolutions), the demosaic and process_sidd_image
 on the 3072x4096 frame card vs CPU, SIDDEvalHarness with and without
 save_plot on 4 of phase 13's scenes (scenes/s, the PNGs read back,
 psnr_rgb card vs CPU), the trainer's sample dump against the CPU render
-of its sample, and guided_filter and row_denoise card vs CPU. Every
-phase prints one
-line with its elapsed seconds; any failure raises (exit code != 0). The
-last two lines are the kernels' JSON record and the device JSON record.
+of its sample, and guided_filter and row_denoise card vs CPU. Phase 19
+reads and writes checkpoints and files with the port's own readers: (a)
+the committed JAX-written orbax checkpoint (tests/data/torch_port/,
+scripts/torch_port_fixtures.py) through the port's zstd decoder and
+orbax reader, bit-equal to its .npz; (b) the s2dt16 params and one
+trainer step's Adam state saved with the port's orbax writer and loaded
+back bit-equal, the product frame through a net built from the loaded
+params bit-equal to the msgpack net's; (c) the committed DND fixture
+(MATLAB v7.3) through the port's HDF5 reader, DNDDataset and
+denoise_dnd on the card. Every profile (`profile_run`) prints K1's
+events in it beside K1's launch counter over the same run, and retakes
+the profile in a process of its own where they differ. Every phase
+prints one line with its elapsed seconds; any failure raises (exit code
+!= 0). The last two lines are the kernels' JSON record and the device
+JSON record.
 With --out, each held-out column's eval_synth JSON is written into DIR.
 Imports nothing of JAX or of the JAX package.
 """
@@ -217,12 +228,13 @@ _GROUPS = (("K1 nle_moments", ("nle_moments",)),
            ("elementwise", ("elementwise", "vectorized", "unrolled")))
 
 
-def profile_run(label: str, run) -> None:
-    """One run() under torch.profiler: device busy time against the host
-    wall time, and device time by kernel group and top kernels (busy
-    holds the 9 tiny warm-up kernels, a few microseconds)."""
+def _k1_profile(run) -> dict:
+    """One run() under torch.profiler after the warm-up kernels: the host
+    wall time, each kernel's device time and count, K1's events in the
+    profile and K1's launch counter over the same run()."""
     from torch.profiler import ProfilerActivity, profile
     from yondx_torch.core.profiling import WARMUP_KERNELS
+    from yondx_torch.nle import moments
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -232,10 +244,12 @@ def profile_run(label: str, run) -> None:
         for _ in range(WARMUP_KERNELS):
             w.add_(1)
         torch.cuda.synchronize()
+        before = moments.LAUNCHES["nle_moments"]
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+        launches = moments.LAUNCHES["nle_moments"] - before
     kernels = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -244,6 +258,14 @@ def profile_run(label: str, run) -> None:
         if us is None:
             us = evt.self_cuda_time_total
         kernels.append((us / 1e3, evt.count, evt.key))
+    return {"wall_ms": wall_ms, "kernels": kernels,
+            "k1_events": sum(n for _, n, key in kernels
+                             if "nle_moments" in key),
+            "k1_launches": launches}
+
+
+def _profile_line(rec: dict) -> str:
+    kernels, wall_ms = rec["kernels"], rec["wall_ms"]
     busy = sum(k[0] for k in kernels)
     groups = {}
     for ms, _, key in kernels:
@@ -252,13 +274,112 @@ def profile_run(label: str, run) -> None:
                       if any(w in low for w in words)), "other")
         groups[group] = groups.get(group, 0.0) + ms
     top = sorted(kernels, reverse=True)[:8]
-    say(label, f"wall {wall_ms:.2f} ms (profiled), device busy "
-        f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), {len(kernels)} "
-        "kernel names; by group ms: " + ", ".join(
-            f"{g} {v:.2f}" for g, v in sorted(groups.items(),
-                                              key=lambda kv: -kv[1]))
-        + "; top: " + "; ".join(f"{key[:60]} x{n} {ms:.2f}"
-                                for ms, n, key in top))
+    return (f"wall {wall_ms:.2f} ms (profiled), device busy {busy:.2f} ms "
+            f"({100 * busy / wall_ms:.1f}%), {len(kernels)} kernel names; "
+            f"K1 events {rec['k1_events']}, K1 launches "
+            f"{rec['k1_launches']}; by group ms: " + ", ".join(
+                f"{g} {v:.2f}" for g, v in sorted(groups.items(),
+                                                  key=lambda kv: -kv[1]))
+            + "; top: " + "; ".join(f"{key[:60]} x{n} {ms:.2f}"
+                                    for ms, n, key in top))
+
+
+def profile_run(label: str, run, child=None) -> dict:
+    """One run() under torch.profiler: device busy time against the host
+    wall time, device time by kernel group and top kernels (busy holds
+    the 9 tiny warm-up kernels, a few microseconds), and K1's events in
+    the profile beside K1's launch counter over the same run(). Where the
+    two differ (the profiler lost events in this long-lived process), the
+    profile is taken again in a process of its own: `child` is (name of a
+    module-level builder, its keyword arguments), the builder returning
+    the same run() there. That profile is printed too, and the phase
+    fails if its counts differ as well (or there is no child)."""
+    rec = _k1_profile(run)
+    say(label, _profile_line(rec))
+    if rec["k1_events"] == rec["k1_launches"]:
+        return rec
+    if child is None:
+        raise AssertionError(f"{label}: the profile holds {rec['k1_events']}"
+                             f" K1 events for {rec['k1_launches']} launches "
+                             "and has no child process to retake it")
+    builder, kwargs = child
+    t = time.perf_counter()
+    mod = os.path.splitext(os.path.basename(__file__))[0]
+    code = (f"import json, {mod} as c; print(json.dumps("
+            f"c.profile_child({builder!r}, {json.dumps(kwargs)!r})))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(f"{label}: the child profile failed:\n"
+                             f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+    crec = json.loads(res.stdout.strip().splitlines()[-1])
+    say(label, f"K1 events {rec['k1_events']} for {rec['k1_launches']} "
+        f"launches in this process; retaken in a process of its own "
+        f"({time.perf_counter() - t:.2f} s with its start and warm-up): "
+        + _profile_line(crec))
+    if crec["k1_events"] != crec["k1_launches"]:
+        raise AssertionError(f"{label}: the child's profile holds "
+                             f"{crec['k1_events']} K1 events for "
+                             f"{crec['k1_launches']} launches too")
+    rec["child"] = crec
+    return rec
+
+
+def profile_child(builder: str, kwargs_json: str) -> dict:
+    """The body of profile_run's child process: K1 loaded, the run built
+    by the named builder, run once to warm up, then profiled."""
+    from yondx_torch import cuda_build
+    cuda_build.load_library()
+    run = globals()[builder](**json.loads(kwargs_json))
+    run()
+    torch.cuda.synchronize()
+    return _k1_profile(run)
+
+
+def _product_fused(frame_path: str):
+    """(the product path's fused denoiser, the frame's RGGB on the card)."""
+    from yondx_torch.io.ckpt import find_checkpoint
+    from yondx_torch.isp.bayer import bayer2rggb
+    from yondx_torch.models.unets import load_guided_s2d
+    from yondx_torch.pipeline.fused import make_fused_blind_denoiser
+    from yondx_torch.vst.lut import BiasLUT
+    net = load_guided_s2d(find_checkpoint(CKPTS,
+                                          "Gaussian_GRUS2DT_mix_1to50c_norm"),
+                          device="cuda", dtype=torch.bfloat16)
+    fused = make_fused_blind_denoiser(net, BiasLUT().lut,
+                                      compute_dtype=torch.bfloat16,
+                                      device="cuda", **PRODUCT)
+    rggb = bayer2rggb(torch.from_numpy(np.load(frame_path)).cuda())[None]
+    return fused, rggb
+
+
+def child_product(frame: str):
+    """profile_run's child builder for the product path (phase 5)."""
+    fused, rggb = _product_fused(frame)
+    return lambda: fused(rggb, 959.0)
+
+
+def child_engine(frame: str, runfile: str, route: str, scene=None):
+    """profile_run's child builder for a runfile's engine as yond builds
+    it (TF32 off): route "tiled" (phase 6's and 12b's frame, tiles 1024 +
+    64), "scene" (phase 13a's SIDD scene) or "mesh" (phase 17a's frame at
+    world 1, cuDNN's benchmark mode off as there)."""
+    from yondx_torch.cli import yond
+    app = yond.YOND(["-f", runfile])
+    engine = app.engine
+    noisy = np.load(frame)
+    if route == "tiled":
+        return lambda: engine.iter_denoise_tiled(
+            {"lr": noisy}, any_params(), tile=1024, halo=64)
+    if route == "scene":
+        item = {"name": "0000", "lr": noisy, "cfa": [[1, 2], [2, 3]]}
+        return lambda: engine.iter_denoise(dict(item), dict(scene))
+    from yondx_torch.parallel import iter_denoise_frame_sharded
+    from yondx_torch.parallel.mesh import make_mesh
+    torch.backends.cudnn.benchmark = False
+    mesh = make_mesh(1)
+    return lambda: iter_denoise_frame_sharded(mesh, engine, noisy,
+                                              any_params())
 
 
 def net_flop_per_pixel(net) -> float:
@@ -369,7 +490,11 @@ def cli_path(noisy, clean, runfile=ANY_RUNFILE, label="cli path",
     say(label, f"net {per_px * n_tiles * side ** 2 / 1e12:.3f} TFLOP a "
         f"pass ({n_tiles} tiles of {side}x{side}x4, {per_px / 1e6:.4f} "
         "MFLOP per RGGB pixel)")
-    profile_run(f"{label} profile", frame)
+    with _frame_file(noisy) as path:
+        profile_run(f"{label} profile", frame,
+                    ("child_engine", {"frame": path,
+                                      "runfile": os.path.abspath(runfile),
+                                      "route": "tiled"}))
     return {"launches": launches, "ms_frame": dt * 1e3}
 
 
@@ -1525,6 +1650,15 @@ def _repo(path):
 
 
 @contextlib.contextmanager
+def _frame_file(arr):
+    """`arr` saved as .npy in a temporary directory, for a child process."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frame.npy")
+        np.save(path, arr)
+        yield path
+
+
+@contextlib.contextmanager
 def _quiet(log):
     """Send the CLI's and the engine's log lines to the file `log`."""
     with open(log, "a") as f, contextlib.redirect_stdout(f):
@@ -1701,8 +1835,11 @@ def sidd_cases(tmp, log) -> dict:
              for i in range(2)]
     with _quiet(log):
         app.engine.iter_denoise(dict(items[0]), dict(p))
-    profile_run("eval (a) profile", lambda: _quiet_call(
-        log, app.engine.iter_denoise, dict(items[0]), dict(p)))
+    with _frame_file(noisy[0]) as path:
+        profile_run("eval (a) profile", lambda: _quiet_call(
+            log, app.engine.iter_denoise, dict(items[0]), dict(p)),
+            ("child_engine", {"frame": path, "runfile": _repo(SIDD_RUNFILE),
+                              "route": "scene", "scene": p}))
     # (g) the first 2 scenes on the CPU, in a directory of their own
     card = np.stack([np.load(os.path.join("npy", method, f"{i:03d}.npy"))
                      for i in range(2)])
@@ -2576,7 +2713,10 @@ def mesh_phase(bw, fp32) -> dict:
         # where a frame's time goes: one more frame under the profiler
         profile_run("phase 17 (a) profile",
                     lambda: iter_denoise_frame_sharded(mesh, engine, noisy,
-                                                       any_params()))
+                                                       any_params()),
+                    ("child_engine", {"frame": fin,
+                                      "runfile": _repo(ANY_RUNFILE),
+                                      "route": "mesh"}))
         x = spatial.shard_rows(mesh, bayer2rggb(torch.from_numpy(noisy)))
         counts = _max_bin_counts(mesh, x, engine, res["raw_dns"][0])
         say("phase 17 (a)", "largest log-histogram bin (exact count): "
@@ -2746,20 +2886,9 @@ def trace_frame_child(frame_path: str, logdir: str) -> dict:
     inside core.profiling.trace; -> the trace's counts."""
     from yondx_torch import cuda_build
     from yondx_torch.core.profiling import trace
-    from yondx_torch.io.ckpt import find_checkpoint
-    from yondx_torch.isp.bayer import bayer2rggb
-    from yondx_torch.models.unets import load_guided_s2d
     from yondx_torch.nle import moments
-    from yondx_torch.pipeline.fused import make_fused_blind_denoiser
-    from yondx_torch.vst.lut import BiasLUT
     cuda_build.load_library()
-    net = load_guided_s2d(find_checkpoint(CKPTS,
-                                          "Gaussian_GRUS2DT_mix_1to50c_norm"),
-                          device="cuda", dtype=torch.bfloat16)
-    fused = make_fused_blind_denoiser(net, BiasLUT().lut,
-                                      compute_dtype=torch.bfloat16,
-                                      device="cuda", **PRODUCT)
-    rggb = bayer2rggb(torch.from_numpy(np.load(frame_path)).cuda())[None]
+    fused, rggb = _product_fused(frame_path)
     fused(rggb, 959.0)
     torch.cuda.synchronize()
     moments.reset_launches()
@@ -3036,6 +3165,240 @@ def isp_phase(noisy) -> dict:
     return rec
 
 
+# 19. the port's orbax checkpoints and DND's MATLAB v7.3 files ---------------
+FIXTURES = "tests/data/torch_port"      # scripts/torch_port_fixtures.py
+
+
+def _fixture_get(tree, key):
+    for k in key.split("/"):
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
+
+
+def _leaves(tree, prefix=""):
+    """{path: leaf} of a tree of dicts and lists (empty containers and
+    None kept as leaves)."""
+    if isinstance(tree, dict) and tree:
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)) and tree:
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_leaves(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: tree}
+
+
+def _same_leaf(a, b) -> bool:
+    if a is None or (isinstance(a, (dict, list, tuple)) and not a):
+        return type(a) is type(b)
+    if isinstance(a, (bool, int, float)):
+        return type(a) is type(b) and a == b
+    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+    b = np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def ckpt_fixture() -> dict:
+    """(a) the committed JAX-written orbax checkpoint: every chunk (a zstd
+    frame) through the port's decoder, then orbax_ckpt.load, bit-equal to
+    the fixture's .npz."""
+    from yondx_torch import native
+    from yondx_torch.io import ocdbt
+    from yondx_torch.train import orbax_ckpt
+    root = _repo(os.path.join(FIXTURES, "orbax"))
+    want = np.load(_repo(os.path.join(FIXTURES, "expected.npz")))
+    t = time.perf_counter()
+    store = ocdbt.Store(root)
+    frames = packed = unpacked = 0
+    for key in store.keys():
+        if key.endswith(b"/.zarray"):
+            continue
+        blob = store.read(key)
+        if blob[:4] != b"\x28\xb5\x2f\xfd":
+            raise AssertionError(f"{key}: not a zstd frame")
+        frames += 1
+        packed += len(blob)
+        unpacked += len(native.zstd_decompress(blob))
+    tree = orbax_ckpt.load(root)
+    keys = [k for k in want.files if not k.startswith("dnd/")]
+    bad = [k for k in keys if not _same_leaf(want[k],
+                                             _fixture_get(tree, k))]
+    ok = not bad and tree["opt_state"][1] is None and \
+        type(tree["meta"]["epoch"]) is int
+    say("phase 19 (a)", f"the JAX-written orbax fixture: {len(store.keys())}"
+        f" keys, {frames} zstd frames ({packed} -> {unpacked} bytes) "
+        f"through the port's decoder; orbax_ckpt.load in "
+        f"{time.perf_counter() - t:.3f} s: {len(keys) - len(bad)} of "
+        f"{len(keys)} leaves bit-equal to the .npz, opt_state [dict, None], "
+        "meta as Python scalars" + (f"; differ: {bad}" if bad else ""))
+    if not ok:
+        raise AssertionError("phase 19 (a): the fixture did not load "
+                             "bit-equal")
+    return {"keys": len(store.keys()), "zstd_frames": frames}
+
+
+def ckpt_roundtrip(noisy, smi, tmp) -> dict:
+    """(b) the s2dt16 net's params (the committed msgpack file through
+    io/ckpt.py) and the Adam state of one step of phase 10b's trainer,
+    saved with the port's orbax_ckpt.save and loaded back bit-equal; a net
+    built from the loaded params denoises the product frame on the card
+    bit-equal to the net built from the msgpack file (cuDNN
+    deterministic)."""
+    from yondx_torch.data.datasets import SyntheticSRGBDataset
+    from yondx_torch.io.ckpt import find_checkpoint, load_checkpoint
+    from yondx_torch.isp.bayer import bayer2rggb
+    from yondx_torch.models.convert import params_to_state_dict
+    from yondx_torch.models.registry import build_model
+    from yondx_torch.models.unets import S2DT16_ARCH, load_guided_s2d
+    from yondx_torch.pipeline.fused import make_fused_blind_denoiser
+    from yondx_torch.train import AWGNTrainer, orbax_ckpt
+    from yondx_torch.train.ckpt import optax_adam_state
+    from yondx_torch.train.draws import train_keys
+    from yondx_torch.vst.lut import BiasLUT
+    ck = find_checkpoint(CKPTS, "Gaussian_GRUS2DT_mix_1to50c_norm")
+    params = load_checkpoint(ck)["params"]
+    args = _train_args(TRAIN_RUNFILE, tmp, dst_train={"synthetic_len": 64},
+                       dst_eval={"synthetic_len": 64})
+    tr = AWGNTrainer(args, device="cuda", field="torch")
+    ds = SyntheticSRGBDataset(length=64, size=256, seed=1997)
+    tr.train_step(np.stack([ds[i] for i in range(64)]),
+                  next(train_keys(7)), 1e-4)
+    opt = optax_adam_state(tr.optimizer, tr.model)
+    path = os.path.join(tmp, "orbax_s2dt16")
+    t = time.perf_counter()
+    orbax_ckpt.save(path, params, opt, epoch=201, best_psnr=44.25)
+    save_s = time.perf_counter() - t
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(path) for f in fs)
+    t = time.perf_counter()
+    back = orbax_ckpt.load(path)
+    load_s = time.perf_counter() - t
+    want = _leaves({"params": params, "opt_state": opt,
+                    "meta": {"epoch": 201, "best_psnr": 44.25}})
+    got = _leaves(back)
+    bad = sorted(k for k in want if k not in got
+                 or not _same_leaf(want[k], got[k]))
+    n_bytes = sum(np.asarray(v).nbytes for v in _leaves(params).values())
+    # the product path from either net, on the card, cuDNN deterministic
+    det, bench = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        net_a = load_guided_s2d(ck, device="cuda", dtype=torch.bfloat16)
+        net_b = build_model(S2DT16_ARCH)
+        net_b.load_state_dict(params_to_state_dict(back["params"]),
+                              strict=True)
+        net_b = net_b.to(device="cuda", dtype=torch.bfloat16).eval().to(
+            memory_format=torch.channels_last)
+        lut = BiasLUT().lut
+        rggb = bayer2rggb(torch.from_numpy(noisy).cuda())[None]
+        outs = []
+        for net in (net_a, net_b):
+            fused = make_fused_blind_denoiser(net, lut,
+                                              compute_dtype=torch.bfloat16,
+                                              device="cuda", **PRODUCT)
+            outs.append(fused(rggb, 959.0))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    say("phase 19 (b)", f"{smi}: orbax_ckpt.save of the s2dt16 params "
+        f"({len(_leaves(params))} leaves, {n_bytes / 1e6:.2f} MB) and the "
+        f"gru32 trainer's Adam state after one step ({len(want)} leaves in "
+        f"all): {save_s:.3f} s, {nbytes / 1e6:.2f} MB on disk; load "
+        f"{load_s:.3f} s: {len(want) - len(bad)} of {len(want)} leaves "
+        f"bit-equal; the product frame through the loaded net "
+        f"{'bit-equal' if same else 'NOT equal'} to the msgpack net's "
+        f"(output {tuple(outs[0][0].shape)}, regs "
+        f"{outs[0][1].float().cpu().numpy().ravel().tolist()})"
+        + (f"; differ: {bad[:5]}" if bad else ""))
+    if bad or not same:
+        raise AssertionError("phase 19 (b): the round trip is not "
+                             "bit-equal")
+    return {"save_s": save_s, "load_s": load_s, "bytes": nbytes}
+
+
+def ckpt_dnd(tmp) -> dict:
+    """(c) the committed DND fixture (MATLAB v7.3, HDF5 behind a 512-byte
+    user block) read by the port's HDF5 reader bit-equal to the .npz, then
+    DNDDataset -> denoise_dnd with the DND runfile's engine on the card:
+    K1 three times a box, finite crops in [0, 1]."""
+    import scipy.io as sio
+    from yondx_torch.cli import yond
+    from yondx_torch.data.eval_datasets import DNDDataset
+    from yondx_torch.eval.dnd import denoise_dnd
+    from yondx_torch.io import hdf5
+    from yondx_torch.nle import moments
+    root = _repo(os.path.join(FIXTURES, "dnd"))
+    want = np.load(_repo(os.path.join(FIXTURES, "expected.npz")))
+    t = time.perf_counter()
+    ok = True
+    for i in range(2):
+        with hdf5.File(os.path.join(root, "images_raw",
+                                    f"{i + 1:04d}.mat")) as f:
+            ok &= f["Inoisy"][()].T.tobytes() == \
+                want[f"dnd/{i + 1:04d}"].tobytes()
+    ds = DNDDataset(root)
+    for i in range(len(ds)):
+        item = ds[i]
+        ok &= item["lr"].tobytes() == want[f"dnd/{i + 1:04d}"].tobytes() \
+            and item["boxes"].tobytes() == want[f"dnd/boxes_{i}"].tobytes()
+    read_s = time.perf_counter() - t
+    n_boxes = sum(len(ds[i]["boxes"]) for i in range(len(ds)))
+    os.symlink(os.path.join(REPO, "checkpoints"),
+               os.path.join(tmp, "checkpoints"))
+    os.chdir(tmp)
+    try:
+        log = os.path.join(tmp, "dnd.log")
+        with _quiet(log):
+            app = yond.YOND(["-f", _repo(DND_RUNFILE)])
+        moments.reset_launches()
+        t = time.perf_counter()
+        with _quiet(log):
+            bundled = denoise_dnd(app.engine, ds, os.path.join(tmp, "sub"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = moments.LAUNCHES["nle_moments"]
+    finally:
+        os.chdir(REPO)
+    crops = [sio.loadmat(os.path.join(bundled, f))["Idenoised_crop"]
+             for f in sorted(os.listdir(bundled))]
+    fine = len(crops) == n_boxes and all(
+        np.isfinite(c).all() and c.min() >= 0 and c.max() <= 1
+        for c in crops)
+    say("phase 19 (c)", f"the DND fixture (2 MATLAB v7.3 images, one "
+        f"chunked with deflate, one contiguous; info.mat's object "
+        f"references) read by the port's HDF5 reader in {read_s:.3f} s, "
+        f"bit-equal to the .npz: {ok}; DNDDataset -> denoise_dnd on the "
+        f"card: {n_boxes} boxes of {crops[0].shape if crops else None} in "
+        f"{wall:.2f} s, finite in [0, 1]: {fine}; K1 launches {launches}")
+    if not ok or not fine or launches != 3 * n_boxes:
+        raise AssertionError("phase 19 (c): the DND fixture, its crops or "
+                             "K1's launches are wrong")
+    return {"launches": launches, "boxes": n_boxes}
+
+
+def ckpt_phase(noisy, smi) -> dict:
+    """Phase 19: the port's orbax checkpoints and DND's MATLAB v7.3
+    files, (a)-(c), in a temporary directory."""
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fn in (("(a)", ckpt_fixture),
+                          ("(b)", lambda: ckpt_roundtrip(noisy, smi, tmp)),
+                          ("(c)", lambda: ckpt_dnd(tmp))):
+            t = time.perf_counter()
+            rec[label.strip("()")] = fn()
+            say("phase 19", f"{label} in {time.perf_counter() - t:.2f} s")
+    return rec
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, metavar="DIR",
@@ -3273,7 +3636,9 @@ def main(argv=None) -> dict:
                              f"frames, expected {3 * runs}")
 
     # where the time goes: one more main-path run under the profiler
-    profile_run("profile", lambda: fused(rggb, scale))
+    with _frame_file(noisy) as path:
+        profile_run("profile", lambda: fused(rggb, scale),
+                    ("child_product", {"frame": path}))
     del fused, net, dn, rggb
 
     # 6. the ANY-camera CLI path (gru32 fp32, whole-frame NLE, tiled) ----
@@ -3319,6 +3684,11 @@ def main(argv=None) -> dict:
 
     # 18. the ISP and the figure tools --------------------------------------
     phase18 = isp_phase(noisy)
+
+    # 19. orbax checkpoints and DND's MATLAB v7.3 files -----------------------
+    t = time.perf_counter()
+    phase19 = ckpt_phase(noisy, smi)
+    say("phase 19", f"in {time.perf_counter() - t:.2f} s")
 
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
@@ -3373,7 +3743,12 @@ def main(argv=None) -> dict:
         # the SIDD eval with and without figures (3 a scene)
         "phase18": {"launches": {"trace_frame": phase18["a"]["launches"],
                                  "sidd_figures": phase18["c"]["launches"]},
-                    **phase18}}]}
+                    **phase18},
+        # phase 19: DND's MATLAB v7.3 fixture through DNDDataset and
+        # denoise_dnd (3 a box)
+        "phase19": {"launches": {"dnd_fixture": phase19["c"]["launches"]},
+                    **phase19}}]}
+    say("done", f"all 19 phases in {time.perf_counter() - T0:.2f} s")
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

@@ -1,12 +1,14 @@
 """The card machine has torch, numpy and scipy but no jax, flax, msgpack,
-PyYAML, cv2, h5py, matplotlib or PIL, and the port must never reach the
-JAX package. In a fresh interpreter whose import system refuses those
-packages, every module of yondx_torch and chip_smoke.py must import
-(readers and figures that need h5py, cv2 or matplotlib import it when
-called, and raise naming it where it is absent).
+PyYAML, cv2, h5py, matplotlib, PIL, zstandard, tensorstore or orbax, and
+the port must never reach the JAX package. In a fresh interpreter whose
+import system refuses those packages, every module of yondx_torch and
+chip_smoke.py must import (readers and figures that need cv2 or
+matplotlib import it when called, and raise naming it where it is
+absent). No source of the port names h5py: its HDF5 reader is its own.
 """
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -18,7 +20,7 @@ SCRIPT = r"""
 import importlib, importlib.util, pkgutil, sys
 
 REFUSED = {"jax", "jaxlib", "flax", "msgpack", "yaml", "yondx", "cv2",
-           "h5py", "matplotlib", "PIL"}
+           "h5py", "matplotlib", "PIL", "zstandard", "tensorstore", "orbax"}
 
 
 class Refuse:
@@ -62,7 +64,8 @@ def test_port_imports_without_jax_flax_msgpack_yaml_or_yondx():
     # the ISP and the figure tools are among them
     for name in ("core.png", "core.profiling", "isp.demosaic", "isp.render",
                  "isp.raw_io", "isp.filters", "eval.visualization",
-                 "eval.debugger"):
+                 "eval.debugger", "io.ocdbt", "io.hdf5",
+                 "train.orbax_ckpt"):
         assert f"yondx_torch.{name}" in want
 
 
@@ -113,3 +116,22 @@ def test_parallel_modules_are_in_the_refused_import_run():
         for pkg in ("jax", "flax", "yondx.", "cv2", "h5py"):
             assert f"import {pkg}" not in src and f"from {pkg}" not in src, \
                 (name, pkg)
+
+
+def test_no_port_source_names_h5py_zstandard_tensorstore_or_orbax():
+    """The DND reader and dataload's v7.3 branch read HDF5 with the port's
+    own reader, and orbax checkpoints go through its own OCDBT store and
+    zstd decoder: no source of the port or chip_smoke.py names h5py, and
+    none imports zstandard, tensorstore or orbax."""
+    pkg = os.path.dirname(yondx_torch.__file__)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, files in os.walk(pkg):
+        paths += [os.path.join(d, f) for f in files
+                  if f.endswith((".py", ".cpp", ".c", ".cu"))]
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        assert "h5py" not in src, path
+        for pkg_name in ("zstandard", "tensorstore", "orbax"):
+            assert not re.search(rf"^\s*(import|from)\s+{pkg_name}\b", src,
+                                 re.M), (path, pkg_name)

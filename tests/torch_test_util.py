@@ -13,13 +13,14 @@ def _one_torch_thread():
 
     The suite runs in parallel workers, and torch's default of one thread
     per core in every worker oversubscribes the machine. One thread also
-    keeps every op off torch's intra-op worker threads: with two threads,
-    the part of an elementwise op that torch hands to its worker (the
-    second 2048-element chunk of a 4096-element sqrt, the second half of
-    a batch's sin/asin) came out of that worker, in some of the suite's
-    processes, up to 2.8e-4 (relative) off in sqrt and 1.1e-5 off after
-    the unprocess chain, the same values each time, while the calling
-    thread's part was exact; the same file passed in fresh processes.
+    kept every op off torch's intra-op worker threads, whose chunk of an
+    elementwise op (the second 2048 elements of a 4096-element sqrt, the
+    second half of a batch's sin/asin) came out up to 2.8e-4 (relative)
+    off in sqrt and 1.1e-5 off after the unprocess chain in some of the
+    suite's processes. The cause was a process's first call into MKL's
+    vector math running on several threads at once, with or without JAX
+    in the process; importing yondx_torch now makes that first call on
+    one thread (yondx_torch/core/vml.py, tests/test_torch_threads.py).
     """
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -9,6 +9,13 @@ from __future__ import annotations
 
 import torch
 
+from .core import vml
+
+# MKL's vector math started on this thread before any intra-op worker
+# calls it: a first call on several threads at once can leave a worker's
+# chunk inexact (core/vml.py)
+vml.warm()
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: "cuda" unless told otherwise.

@@ -1,11 +1,12 @@
 """Multi-format frame loader (port of yondx/core/io.py).
 
-Formats: .npy, .mat (scipy.io; MATLAB v7.3 files through h5py, key 'x'
-or the first key), .png (the port's own reader, core/png.py, in the
+Formats: .npy, .mat (scipy.io; MATLAB v7.3 files, which are HDF5,
+through the port's own reader `io/hdf5.py`, key 'x' or the first key in
+name order), .png (the port's own reader, core/png.py, in the
 channel order the JAX package's cv2.imread + BGR -> RGB gives),
 .jpg/.bmp (BGR -> RGB through cv2), .raw (fixed
-1440x2560 uint16). Camera raws (.ARW/.DNG/.NEF/.CR2) need rawpy. cv2,
-h5py and rawpy are optional: a format whose package is absent raises
+1440x2560 uint16). Camera raws (.ARW/.DNG/.NEF/.CR2) need rawpy. cv2
+and rawpy are optional: a format whose package is absent raises
 ImportError.
 """
 from __future__ import annotations
@@ -36,10 +37,10 @@ def dataload(path: str):
         try:
             mat = sio.loadmat(path)
         except NotImplementedError:  # MATLAB v7.3 -> HDF5
-            h5py = _need("h5py", ext)
-            with h5py.File(path, "r") as f:
-                key = "x" if "x" in f else list(f.keys())[0]
-                return np.array(f[key]).T
+            from ..io import hdf5
+            with hdf5.File(path) as f:
+                key = "x" if "x" in f else f.keys()[0]
+                return f[key][()].T
         keys = [k for k in mat if not k.startswith("__")]
         return mat["x"] if "x" in mat else mat[keys[0]]
     if ext == ".png":

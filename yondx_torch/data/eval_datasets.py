@@ -4,8 +4,9 @@ yondx/data/eval_datasets.py, numpy and the file layouts copied).
 Each item is {'name', 'lr' (bayer [H, W] in [0, 1]), optional 'hr',
 'cfa', 'wp', 'bl', 'ratio'}, the schema `eval/fullframe.py`'s harness and
 `eval/dnd.py` consume. Frames stored as .npy/.mat load with numpy and
-scipy; camera raws need rawpy (core.io.dataload), and DND's MATLAB v7.3
-files need h5py: where the package is absent they raise ImportError.
+scipy; camera raws need rawpy (core.io.dataload): where it is absent
+they raise ImportError. DND's MATLAB v7.3 files (HDF5) are read by the
+port's own reader, `io/hdf5.py`.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from ..core.io import _need, dataload
+from ..core.io import dataload
+from ..io import hdf5
 
 
 def _norm(raw, wp, bl, ratio=1.0):
@@ -130,10 +132,11 @@ class DNDDataset:
     {root}/images_raw/{0001..0050}.mat (key 'Inoisy', MATLAB v7.3) and
     {root}/info.mat with each image's bounding boxes. No ground truth
     (server-scored); items carry the 20 crop boxes (1-indexed rows
-    [y0, x0, y1, x1]) for eval/dnd.py. Reads HDF5 through h5py."""
+    [y0, x0, y1, x1]) for eval/dnd.py. Reads the HDF5 files with
+    `io/hdf5.py`: each box array through info/boundingboxes' object
+    references, transposed to [20, 4]."""
 
     def __init__(self, root_dir: str):
-        h5py = _need("h5py", "DND .mat (MATLAB v7.3)")
         self.root = root_dir
         img_dir = os.path.join(root_dir, "images_raw")
         self.paths = sorted(glob.glob(os.path.join(img_dir, "*.mat")))
@@ -142,18 +145,17 @@ class DNDDataset:
         self.boxes = None
         info_path = os.path.join(root_dir, "info.mat")
         if os.path.exists(info_path):
-            with h5py.File(info_path, "r") as f:
+            with hdf5.File(info_path) as f:
                 info = f["info"]
-                self.boxes = [np.array(f[ref]).T
-                              for ref in info["boundingboxes"][0]]
+                self.boxes = [f[ref][()].T
+                              for ref in info["boundingboxes"][()][0]]
 
     def __len__(self):
         return len(self.paths)
 
     def __getitem__(self, idx: int) -> dict:
-        h5py = _need("h5py", "DND .mat (MATLAB v7.3)")
-        with h5py.File(self.paths[idx], "r") as f:
-            noisy = np.array(f["Inoisy"]).T.astype(np.float32)
+        with hdf5.File(self.paths[idx]) as f:
+            noisy = f["Inoisy"][()].T.astype(np.float32)
         data = {"name": os.path.basename(self.paths[idx])[:-4],
                 "lr": noisy, "wp": 1, "bl": 0, "ratio": 1.0,
                 "cfa": [[1, 2], [2, 3]]}

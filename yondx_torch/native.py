@@ -1,6 +1,8 @@
 """Host C++ of the port: the BM3D (port of yondx/native/__init__.py's
-`bm3d`) and the host filters `box_mean`, `local_moments` and
-`bilateral_row` (its other three).
+`bm3d`), the host filters `box_mean`, `local_moments` and
+`bilateral_row` (its other three), and the checkpoint codecs
+`zstd_decompress` and `crc32c` (`csrc/zstd_host.cpp`, the port's own
+RFC 8878 decoder, which `io/ocdbt.py` reads orbax checkpoints with).
 
 Each source under `csrc/` (`bm3d_host.cpp`, `host_filters.cpp`, the
 port's own copies of the JAX package's C++) is compiled on first use
@@ -82,6 +84,47 @@ def _filters() -> ctypes.CDLL:
                 fn.restype = None
             _libs["filters"] = lib
         return _libs["filters"]
+
+
+def _zstd() -> ctypes.CDLL:
+    """The checkpoint codecs' library (csrc/zstd_host.cpp), bound."""
+    with _lock:
+        if "zstd" not in _libs:
+            lib = _build("zstd_host")
+            p, n = ctypes.c_void_p, ctypes.c_size_t
+            lib.zstd_decompress.argtypes = [ctypes.c_char_p, n,
+                                            ctypes.POINTER(p), p,
+                                            ctypes.c_int]
+            lib.zstd_decompress.restype = ctypes.c_longlong
+            lib.zstd_free.argtypes = [p]
+            lib.zstd_free.restype = None
+            lib.crc32c.argtypes = [ctypes.c_char_p, n]
+            lib.crc32c.restype = ctypes.c_uint32
+            _libs["zstd"] = lib
+        return _libs["zstd"]
+
+
+def zstd_decompress(buf: bytes) -> bytes:
+    """Decode one or more concatenated zstd frames (RFC 8878). A corrupt
+    frame, a checksum mismatch, a dictionary or a skippable frame raises
+    ValueError naming it."""
+    lib = _zstd()
+    src = bytes(buf)
+    out = ctypes.c_void_p()
+    err = ctypes.create_string_buffer(512)
+    n = lib.zstd_decompress(src, len(src), ctypes.byref(out), err, 512)
+    if n < 0:
+        raise ValueError(f"zstd: {err.value.decode()}")
+    try:
+        return ctypes.string_at(out, n)
+    finally:
+        lib.zstd_free(out)
+
+
+def crc32c(buf: bytes) -> int:
+    """CRC-32C (Castagnoli) of `buf`, as OCDBT's manifests and nodes end."""
+    src = bytes(buf)
+    return int(_zstd().crc32c(src, len(src)))
 
 
 def _ptr(a: np.ndarray):
