@@ -82,7 +82,29 @@ trainer step's Adam state saved with the port's orbax writer and loaded
 back bit-equal, the product frame through a net built from the loaded
 params bit-equal to the msgpack net's; (c) the committed DND fixture
 (MATLAB v7.3) through the port's HDF5 reader, DNDDataset and
-denoise_dnd on the card. Every profile (`profile_run`) prints K1's
+denoise_dnd on the card. Phase 20 holds what the product ships to the
+evidence that set it: (a) the v2 held-out columns of s2dt16 and gru32 in
+fp32 (`eval_synth --heldout --suite v2` over phase 9's scenes), held by
+phase 9's rules to docs/heldout/r5_{s2dt,flagship}_oriented_v2_tpu.json
+and row for row to phase 9's v3 rows within 1e-4 dB; (b) the same with
+`--sigma-corr adaptive`, held to r5_{s2dt,flagship}_adaptive_corr_v2_tpu
+.json; (c) the rescue policy's full sweep (`yondx_torch.cli.sweep_policy`:
+suite v2 with the second pass forced, the five fault rungs, the gru32
+flagship): the shipped defaults (tol 0.15, floor_frac 1.5) must lie in
+the card's acceptable region, the fault rows' needs_rescue must be
+docs/policy_sweep_r5.json's and their ffrac within 1% of it, K1 3 a scene
+and a rung, and a one-crop scene and rung 0.5 card vs CPU by phase 9e's
+rule; (d) the sigma-corr probe (`yondx_torch.cli.probe_sigma_corr_blind`,
+33 scenes x 8 corrs): the scene list as docs/sigma_corr_blind_r5.json's,
+the clip fractions within 1e-6 of the host's on the same scenes (the
+artifact's scenes were built in the TPU's arithmetic), the blind signals,
+best and adaptive corrs printed beside the artifact's, a one-crop scene
+card vs CPU; (e) the checkpoint
+recipe tools (port_s2d_init, port_s2d_tail, fork_checkpoint,
+ship_weights, port_reference_checkpoint, compare_ckpts) in a temporary
+directory: every copy bit-equal to its source, the tail's net
+bit-identical to its source on the card, both compare_ckpts means 5 dB
+over noisy. Every profile (`profile_run`) prints K1's
 events in it beside K1's launch counter over the same run, and retakes
 the profile in a process of its own where they differ. Every phase
 prints one line with its elapsed seconds; any failure raises (exit code
@@ -662,8 +684,8 @@ def heldout_card_vs_cpu():
 
 def heldout_gate(out_dir=None):
     """Phase 9: the frozen held-out gate on the card (see the module
-    docstring); returns K1's launches per column, the scenes and column
-    (d)'s mean PSNR."""
+    docstring); returns K1's launches per column, the scenes, column
+    (d)'s mean PSNR and the rows of columns (a) and (b)."""
     from yondx_torch.eval import heldout
     from yondx_torch.eval.metrics import psnr as t_psnr
     if out_dir:
@@ -724,7 +746,7 @@ def heldout_gate(out_dir=None):
                              f"(K, sigma): {outs.tolist()}")
     # (e) the engine on the card against the CPU
     heldout_card_vs_cpu()
-    return launches, scenes, rows_pge["_summary"]["mean_psnr"]
+    return launches, scenes, rows_pge["_summary"]["mean_psnr"], cols
 
 
 TRAIN_RUNFILE = "runfiles/Gaussian/GRU_5to50_norm_mix.yml"
@@ -3399,6 +3421,438 @@ def ckpt_phase(noisy, smi) -> dict:
     return rec
 
 
+# 20. what the product ships: the v2 artifacts, the rescue-policy sweep, the
+# sigma-corr probe and the checkpoint recipe tools ---------------------------
+SWEEP_ART = "docs/policy_sweep_r5.json"
+PROBE_ART = "docs/sigma_corr_blind_r5.json"
+# JAX's CPU run of `scripts/sweep_policy.py --regrid docs/policy_sweep_r5.json`
+# (the port's --regrid and tests/test_torch_sweep_policy.py reproduce it):
+# its acceptable region, and ramp_big's ffrac there
+JAX_CPU_REGION = [[t, 1.5] for t in (0.05, 0.1, 0.15, 0.25, 0.4)]
+JAX_CPU_RAMP_BIG_FFRAC = 1.3276
+FAULT_NEEDS = [False, True, True, True, True]
+
+
+def _fmt(v, spec) -> str:
+    return "none" if v is None else format(v, spec)
+
+
+def _json(path):
+    with open(_repo(path)) as f:
+        return json.load(f)
+
+
+def _max_row_gap(rows, rows9) -> float:
+    """Largest |difference| (dB) of noisy and per-round PSNRs between a
+    column's rows and phase 9's rows of the same scenes."""
+    gap = 0.0
+    for name, r in rows.items():
+        if name == "_summary":
+            continue
+        q = rows9[name]
+        if len(r["psnr"]) != len(q["psnr"]):
+            return float("inf")
+        gap = max(gap, abs(r["noisy_psnr"] - q["noisy_psnr"]),
+                  *(abs(a - b) for a, b in zip(r["psnr"], q["psnr"])))
+    return gap
+
+
+def shipped_v2_columns(scenes, cols9, out_dir) -> dict:
+    """(a) the v2 columns of s2dt16 and gru32 in fp32 over phase 9's
+    scenes, held to the oriented v2 TPU artifacts and to phase 9's rows;
+    (b) the same with --sigma-corr adaptive, held to the adaptive v2
+    artifacts. K1 3 a scene in each column."""
+    launches, means = {}, {}
+    for label, flags, tag in (("s2dt16", S2DT16_FLAGS, "s2dt"),
+                              ("gru32", GRU32_FLAGS, "flagship")):
+        for mode, extra in (("oriented", []),
+                            ("adaptive", ["--sigma-corr", "adaptive"])):
+            name = f"{label}_{mode}"
+            art = _json(f"docs/heldout/r5_{tag}_{mode}"
+                        f"{'_corr' if mode == 'adaptive' else ''}"
+                        "_v2_tpu.json")["rows"]
+            rows, launches[name], _ = heldout_column(
+                name, flags + extra, scenes, out_dir, suite="v2")
+            if len(rows) - 1 != 36:
+                raise AssertionError(f"phase 20 {name}: {len(rows) - 1} "
+                                     "scenes, expected 36")
+            hold_to_artifact(name, rows, art)
+            means[name] = (rows["_summary"]["mean_psnr"],
+                           art["_summary"]["mean_psnr"])
+            if mode == "oriented":
+                gap = _max_row_gap(rows, cols9[label])
+                say("phase 20 (a)", f"{name}: the 36 v2 rows against phase "
+                    f"9's v3 rows of the same scenes: largest difference "
+                    f"{gap:.3e} dB")
+                if gap > 1e-4:
+                    raise AssertionError(f"phase 20 {name}: rows differ "
+                                         f"from phase 9's by {gap:.3e} dB")
+        d, a = (means[f"{label}_adaptive"][i] - means[f"{label}_oriented"][i]
+                for i in (0, 1))
+        say("phase 20 (b)", f"{label}: adaptive - oriented on v2 {d:+.4f} "
+            f"dB on the card (artifacts {a:+.4f})")
+    return {"launches": launches,
+            "means": {k: v[0] for k, v in means.items()}}
+
+
+def _hold_card_cpu(label, card, cpu, shifted, psnr_keys, sig_keys,
+                   exact_keys=()):
+    """Phase 9e's rule on one row: PSNRs within 0.01 dB; each signal
+    within the larger of rtol 1e-3 and the card's own spread under a
+    +-1e-6 shift of the input; exact_keys within 1e-6."""
+    bad = [k for k in psnr_keys if abs(card[k] - cpu[k]) > 0.01]
+    parts = []
+    for k in sig_keys:
+        spread = max(abs(s[k] - card[k]) for s in shifted)
+        allowed = max(1e-3 * abs(cpu[k]), spread)
+        parts.append(f"{k} {card[k]:.6g}/{cpu[k]:.6g} (allowed "
+                     f"{allowed:.2e})")
+        if abs(card[k] - cpu[k]) > allowed:
+            bad.append(k)
+    bad += [k for k in exact_keys if abs(card[k] - cpu[k]) > 1e-6]
+    say("phase 20 cuda vs cpu", f"{label}: PSNR (card/cpu) " + ", ".join(
+        f"{k} {card[k]:.4f}/{cpu[k]:.4f}" for k in psnr_keys)
+        + "; " + ", ".join(parts))
+    if bad:
+        raise AssertionError(f"phase 20 {label}: card and CPU differ in "
+                             f"{bad}")
+
+
+def shipped_sweep(scenes, tmp) -> dict:
+    """(c) scripts/sweep_policy.py's full sweep on the card (suite v2 with
+    the second pass forced, the five fault rungs, the gru32 flagship in
+    fp32) through yondx_torch.cli.sweep_policy; its exit rule, the fault
+    rows against the artifact; a reduced scene and rung 0.5 card vs CPU."""
+    import dataclasses as dc
+    from yondx_torch.cli import sweep_policy as sp
+    from yondx_torch.eval import heldout
+    from yondx_torch.nle import moments
+    art = _json(SWEEP_ART)
+    args = sp.parse_args(["--out", os.path.join(tmp, "policy_sweep.json")])
+    eng = sp.build_engine(args, "replace")
+    torch.cuda.synchronize()
+    moments.reset_launches()
+    t = time.perf_counter()
+    rec = sp.run(args, scenes=scenes, engine=eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = moments.LAUNCHES["nle_moments"]
+    n = len(rec["suite_rows"]) + len(rec["fault_rows"])
+    region = [list(p) for p in rec["ok_region"]]
+    arows = {r["scene"]: r for r in art["suite_rows"]}
+    say("phase 20 (c)", f"sweep on the card in {wall:.2f} s ({n} scenes "
+        f"and rungs, K1 launches {launches}); acceptable region "
+        f"{len(region)}/25 {region}; artifact (TPU) "
+        f"{len(art['ok_region'])}/25 {art['ok_region']}; JAX CPU regrid "
+        f"{len(JAX_CPU_REGION)}/25 {JAX_CPU_REGION}; defaults (0.15, 1.5) "
+        f"acceptable: {rec['defaults']['ok']}")
+    say("phase 20 (c)", "scene ffrac / agree, card (artifact): " + "; ".join(
+        f"{r['scene']} {_fmt(r['ffrac'], '.4f')} "
+        f"({arows[r['scene']]['ffrac']:.4f}) / {_fmt(r['agree'], '+.4f')} "
+        f"({arows[r['scene']]['agree']:+.4f})" for r in rec["suite_rows"]))
+    say("phase 20 (c)", "fault rungs f: ffrac card (artifact), agree, "
+        "needs_rescue: " + "; ".join(
+            f"{r['fault_scale']}: {r['ffrac']:.4f} ({a['ffrac']:.4f}), "
+            f"{r['agree']:+.4f}, {r['needs_rescue']}"
+            for r, a in zip(rec["fault_rows"], art["fault_rows"])))
+    rb = next(r for r in rec["suite_rows"] if r["scene"] == "ramp_big")
+    r05 = rec["fault_rows"][1]
+    say("phase 20 (c)", f"margins to the gate 1.5: ramp_big ffrac "
+        f"{rb['ffrac']:.4f} ({1.5 - rb['ffrac']:+.4f}; TPU "
+        f"{arows['ramp_big']['ffrac']:.4f}, JAX CPU "
+        f"{JAX_CPU_RAMP_BIG_FFRAC}), fire - hold "
+        f"{rb['psnr_fire'] - rb['psnr_hold']:+.3f} dB; rung 0.5 ffrac "
+        f"{r05['ffrac']:.4f} "
+        f"({r05['ffrac'] - 1.5:+.4f})")
+    if launches != 3 * n:
+        raise AssertionError(f"phase 20 (c): K1 launched {launches} times "
+                             f"for {n} scenes and rungs, expected {3 * n}")
+    if not rec["defaults"]["ok"]:
+        raise AssertionError("phase 20 (c): the defaults (0.15, 1.5) are "
+                             "not in the card's acceptable region")
+    if [r["needs_rescue"] for r in rec["fault_rows"]] != FAULT_NEEDS:
+        raise AssertionError("phase 20 (c): fault rows' needs_rescue "
+                             f"{[r['needs_rescue'] for r in rec['fault_rows']]}")
+    off = [r["fault_scale"] for r, a in zip(rec["fault_rows"],
+                                            art["fault_rows"])
+           if abs(r["ffrac"] / a["ffrac"] - 1) > 0.01]
+    if off:
+        raise AssertionError(f"phase 20 (c): rungs {off} ffrac more than 1% "
+                             "from the artifact's")
+    # a scene cut to one crop and rung 0.5, card vs CPU
+    cpu = sp.build_engine(sp.parse_args(["--cpu"]), "replace")
+    spec = dc.replace(next(s for s in heldout.SUITES["v1"]
+                           if s.name == "glyphs_lo"), n_crops=1)
+    clean, noisy = heldout.build_scene(spec)
+    fclean, fnoisy = sp.fault_scene()
+    for label, row, x in (
+            ("sweep glyphs_lo (1 crop)",
+             lambda e, y: sp.suite_row(e, spec, clean, y), noisy),
+            ("sweep rung 0.5", lambda e, y: sp.fault_row(e, 0.5, fclean, y),
+             fnoisy)):
+        _hold_card_cpu(label, row(eng, x), row(cpu, x),
+                       [row(eng, x + d) for d in (1e-6, -1e-6)],
+                       ("psnr_hold", "psnr_fire"), ("agree", "frac", "ffrac"))
+    return {"launches": launches, "ok_region": region,
+            "defaults_ok": rec["defaults"]["ok"],
+            "ramp_big_ffrac": rb["ffrac"], "rung05_ffrac": r05["ffrac"]}
+
+
+def _adaptive_of(row) -> float:
+    """The adaptive rule (pipeline/denoiser.py) on an artifact row's own
+    signals: nsr, the clipped fraction clip_lo + clip_hi, mad_ratio."""
+    from yondx_torch.pipeline import denoiser as d
+    c_lo, c_mid, c_hi, c_clip = d.ADAPTIVE_CORR_VALUES
+    corr = c_lo if row["nsr"] < d.ADAPTIVE_CORR_NSR_LO else c_mid
+    if row["clip_lo"] + row["clip_hi"] > d.ADAPTIVE_CORR_CLIP and \
+            abs(row["mad_ratio"] - 1.0) < d.ADAPTIVE_CORR_MAD_DEV:
+        corr = c_clip
+    return c_hi if row["nsr"] > d.ADAPTIVE_CORR_NSR_HI else corr
+
+
+def _psnr_at(row, corr) -> float:
+    i = min(range(len(row["corrs"])),
+            key=lambda j: abs(row["corrs"][j] - corr))
+    return row["psnrs"][i]
+
+
+def shipped_probe(scenes, tmp) -> dict:
+    """(d) scripts/probe_sigma_corr_blind.py on the card through
+    yondx_torch.cli.probe_sigma_corr_blind: all 33 rows beside the
+    artifact's, their clip fractions held to the host's; a scene cut to
+    one crop card vs CPU."""
+    import dataclasses as dc
+    from yondx_torch.cli import probe_sigma_corr_blind as pb
+    from yondx_torch.eval import heldout
+    from yondx_torch.nle import moments
+    art = _json(PROBE_ART)["rows"]
+    args = pb.parse_args(["--out", os.path.join(tmp, "sigma_corr.json")])
+    eng = pb.build_engine(args)
+    torch.cuda.synchronize()
+    moments.reset_launches()
+    t = time.perf_counter()
+    rows = pb.run(args, scenes=scenes, engine=eng)["rows"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = moments.LAUNCHES["nle_moments"]
+    if [r["scene"] for r in rows] != [r["scene"] for r in art]:
+        raise AssertionError("phase 20 (d): the scene list differs from "
+                             "the artifact's")
+    # the clip fractions of the same numpy-built scenes on the host: the
+    # TPU artifact's scenes went through the unprocess chain in the TPU's
+    # arithmetic, and JAX's CPU run differs from its fractions as the
+    # port's does (voronoi_lo clip_lo 0.0849228 against 0.0846939)
+    from yondx_torch.isp.bayer import bayer2rggb
+    host = []
+    for r in rows:
+        rg = bayer2rggb(torch.from_numpy(scenes[(r["scene"], None)][1]))
+        host.append({"clip_lo": float(torch.mean((rg < 0.02).float())),
+                     "clip_hi": float(torch.mean((rg > 0.98).float()))})
+    clip = max(abs(r[k] - h[k]) for r, h in zip(rows, host)
+               for k in ("clip_lo", "clip_hi"))
+    clip_tpu = [max(abs(r[k] - a[k]) for k in ("clip_lo", "clip_hi"))
+                for r, a in zip(rows, art)]
+    rel = {k: max(abs(r[k] - a[k]) / max(abs(r[k]), abs(a[k]), 1e-30)
+                  for r, a in zip(rows, art))
+           for k in ("K_est", "sigma_est", "mad_ratio", "nsr")}
+    agree = sum(r["best_corr"] == a["best_corr"] for r, a in zip(rows, art))
+    gain = np.mean([_psnr_at(r, r["adaptive_corr"]) - _psnr_at(r, 1.03)
+                    for r in rows])
+    gain_art = np.mean([_psnr_at(a, _adaptive_of(a)) - _psnr_at(a, 1.03)
+                        for a in art])
+    say("phase 20 (d)", f"probe on the card: {len(rows)} scenes x "
+        f"{len(args.corrs)} corrs in {wall:.2f} s, K1 launches {launches}; "
+        f"clip fractions within {clip:.1e} of the host's on the same scenes "
+        f"(of the TPU artifact's: {max(clip_tpu):.2e} at most, "
+        f"{sum(c <= 1e-6 for c in clip_tpu)}/{len(rows)} within 1e-6); "
+        "largest relative difference to the artifact (TPU): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rel.items())
+        + f"; best_corr as the artifact's in {agree}/{len(rows)} scenes; "
+        f"mean PSNR of the adaptive choice - at 1.03: {gain:+.4f} dB "
+        f"(the artifact's rows under the same rule: {gain_art:+.4f})")
+    say("phase 20 (d)", "scene: K_est, sigma_est, mad_ratio, nsr card "
+        "(artifact); best_corr card (artifact); adaptive_corr: " + "; ".join(
+            f"{r['scene']} {r['K_est']:.4f} ({a['K_est']:.4f}), "
+            f"{r['sigma_est']:.4f} ({a['sigma_est']:.4f}), "
+            f"{r['mad_ratio']:.4f} ({a['mad_ratio']:.4f}), "
+            f"{r['nsr']:.5f} ({a['nsr']:.5f}); {r['best_corr']} "
+            f"({a['best_corr']}); {r['adaptive_corr']:.2f}"
+            for r, a in zip(rows, art)))
+    if clip > 1e-6:
+        raise AssertionError(f"phase 20 (d): clip fractions {clip:.2e} "
+                             "from the host's")
+    if launches != len(rows):
+        raise AssertionError(f"phase 20 (d): K1 launched {launches} times "
+                             f"for {len(rows)} scenes")
+    # one scene cut to one crop, every corr, card vs CPU
+    cpu = pb.build_engine(pb.parse_args(["--cpu"]))
+    spec = dc.replace(next(s for s in heldout.SUITES["v2"]
+                           if s.name == "voronoi_mid"), n_crops=1)
+    clean, noisy = heldout.build_scene(spec)
+    card, host = (pb.probe_row(e, spec, clean, noisy, args.corrs)
+                  for e in (eng, cpu))
+    shifted = [pb.blind_signals(eng, noisy + d) for d in (1e-6, -1e-6)]
+    for i, c in enumerate(args.corrs):
+        card[f"psnr@{c}"], host[f"psnr@{c}"] = card["psnrs"][i], \
+            host["psnrs"][i]
+    _hold_card_cpu("probe voronoi_mid (1 crop)", card, host, shifted,
+                   [f"psnr@{c}" for c in args.corrs],
+                   ("K_est", "sigma_est", "mad_ratio", "nsr"),
+                   ("clip_lo", "clip_hi", "adaptive_corr"))
+    return {"launches": launches, "best_corr_agree": agree,
+            "adaptive_gain_db": float(gain), "artifact_gain_db":
+            float(gain_art)}
+
+
+def _same_tree(a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return la.keys() == lb.keys() and all(_same_leaf(la[k], lb[k])
+                                          for k in la)
+
+
+def shipped_ckpt_tools(noisy, tmp) -> dict:
+    """(e) the checkpoint recipe tools in a temporary directory on links
+    to the committed checkpoints; every file they write reloads through
+    train/ckpt.load_checkpoint."""
+    from yondx_torch.cli import (compare_ckpts, fork_checkpoint,
+                                 port_reference_checkpoint, port_s2d_init,
+                                 port_s2d_tail, ship_weights)
+    from yondx_torch.isp.bayer import bayer2rggb
+    from yondx_torch.models.convert import params_to_state_dict
+    from yondx_torch.models.registry import build_model
+    from yondx_torch.models.torch_port import guidedresunet_to_torch
+    from yondx_torch.models.unets import S2D64_ARCH, S2DT16_ARCH
+    from yondx_torch.nle import moments
+    from yondx_torch.train.ckpt import load_checkpoint
+    from yondx_torch.train.s2d_port import S2D_PORT_MAP
+    gru, s2d3, s2dt = ("Gaussian_GRU_mix_1to50c_norm_best_model.ckpt",
+                       "Gaussian_GRUS2D3_mix_1to50c_norm_last_model.ckpt",
+                       "Gaussian_GRUS2DT_mix_1to50c_norm_best_model.ckpt")
+    d = os.path.join(tmp, "ckpts")
+    os.makedirs(d)
+    for f in (gru, s2d3, s2dt):
+        os.symlink(os.path.join(CKPTS, f), os.path.join(d, f))
+    rec, t = {}, time.perf_counter()
+    flag = load_checkpoint(os.path.join(d, gru))["params"]
+    # port_s2d_init: every ported stage is the flagship's leaf
+    out = port_s2d_init.main(["--ckpt-dir", d, "--dst", "S2DInit"])
+    got = params_to_state_dict(load_checkpoint(out["out"])["params"])
+    fsd = params_to_state_dict(flag)
+    same = all(torch.equal(v, fsd["unet." + S2D_PORT_MAP[k.split(".")[0]]
+                                  + k[k.index("."):]])
+               for k, v in got.items() if k.split(".")[0] in out["ported"])
+    say("phase 20 (e)", f"port_s2d_init: ported {len(out['ported'])} "
+        f"stages bit-equal to the flagship: {same}; fresh {out['fresh']}; "
+        f"forward on the card ({time.perf_counter() - t:.2f} s)")
+    if not same:
+        raise AssertionError("phase 20 (e): port_s2d_init's stages differ")
+    # port_s2d_tail: bit-identical output, on a crop of phase 5's frame
+    t = time.perf_counter()
+    out = port_s2d_tail.main(["--ckpt-dir", d, "--dst", "S2DTail"])
+    src, ext = build_model(S2D64_ARCH), build_model(S2DT16_ARCH)
+    src.load_state_dict(params_to_state_dict(
+        load_checkpoint(os.path.join(d, s2d3))["params"]))
+    ext.load_state_dict(params_to_state_dict(
+        load_checkpoint(out["out"])["params"]))
+    crop = bayer2rggb(torch.from_numpy(noisy[:512, :512]))[None]
+    y = port_s2d_tail.identity_check(src.cuda().eval(), ext.cuda().eval(),
+                                     "cuda", crop.numpy())
+    say("phase 20 (e)", f"port_s2d_tail: {out['tail_params']} tail params; "
+        f"the extended net's output bit-identical to the source's on the "
+        f"card on [1, 128, 128, 4] noise and on a {tuple(crop.shape)} crop "
+        f"of phase 5's frame (output finite: "
+        f"{bool(np.isfinite(y).all())}; {time.perf_counter() - t:.2f} s)")
+    # fork_checkpoint
+    t = time.perf_counter()
+    dst = fork_checkpoint.main(["Gaussian_GRUS2DT_mix_1to50c_norm", "Fork",
+                                "--ckpt-dir", d])
+    src_s = load_checkpoint(os.path.join(d, s2dt))
+    fk = load_checkpoint(dst)
+    fork_ok = (fk["epoch"], fk["best_psnr"], fk["opt_state"]) == (0, 0.0, {}) \
+        and _same_tree(fk["params"], src_s["params"])
+    try:
+        fork_checkpoint.main(["Gaussian_GRUS2DT_mix_1to50c_norm", "Fork",
+                              "--ckpt-dir", d])
+        refused = False
+    except FileExistsError:
+        refused = True
+    say("phase 20 (e)", f"fork_checkpoint: epoch {fk['epoch']}, best_psnr "
+        f"{fk['best_psnr']}, opt_state {fk['opt_state']}, params bit-equal "
+        f"to the source's: {fork_ok}; a second fork refused: {refused} "
+        f"({time.perf_counter() - t:.2f} s)")
+    if not (fork_ok and refused):
+        raise AssertionError("phase 20 (e): fork_checkpoint")
+    # ship_weights of a copy of the s2dt16 checkpoint
+    t = time.perf_counter()
+    copy = os.path.join(tmp, "s2dt16_copy.ckpt")
+    with open(os.path.join(d, s2dt), "rb") as fi, open(copy, "wb") as fo:
+        fo.write(fi.read())
+    shipped = ship_weights.main([copy, os.path.join(tmp, "shipped.ckpt")])[0]
+    sh = load_checkpoint(shipped["dst"])
+    ship_ok = not sh["opt_state"] and sh["epoch"] == src_s["epoch"] and \
+        sh["best_psnr"] == src_s["best_psnr"] and \
+        _same_tree(sh["params"], src_s["params"])
+    say("phase 20 (e)", f"ship_weights: {shipped['bytes_src']} -> "
+        f"{shipped['bytes_dst']} bytes, params only, every leaf bit-equal: "
+        f"{ship_ok} ({time.perf_counter() - t:.2f} s)")
+    if not ship_ok:
+        raise AssertionError("phase 20 (e): ship_weights")
+    # port_reference_checkpoint of a .pth written from the gru32 net
+    t = time.perf_counter()
+    pth = os.path.join(tmp, "gru32.pth")
+    torch.save({k: torch.from_numpy(np.array(v))
+                for k, v in guidedresunet_to_torch(flag).items()}, pth)
+    ported = port_reference_checkpoint.main(
+        ["--pth", pth, "--out", os.path.join(tmp, "gru32_ported.ckpt")])
+    ref_ok = _same_tree(load_checkpoint(ported["out"])["params"], flag)
+    say("phase 20 (e)", f"port_reference_checkpoint: {ported['params']} "
+        f"params from the .pth, bit-equal to the gru32 checkpoint: "
+        f"{ref_ok} ({time.perf_counter() - t:.2f} s)")
+    if not ref_ok:
+        raise AssertionError("phase 20 (e): port_reference_checkpoint")
+    # compare_ckpts over the gru32 and s2dt16 checkpoints
+    t = time.perf_counter()
+    moments.reset_launches()
+    res = compare_ckpts.main([os.path.join(d, gru), os.path.join(d, s2dt)])
+    torch.cuda.synchronize()
+    launches = moments.LAUNCHES["nle_moments"]
+    say("phase 20 (e)", "compare_ckpts (8 flat scenes of 8 crops): "
+        + "; ".join(f"{r['arch']} mean {r['mean']:.4f} dB (noisy "
+                    f"{r['noisy']:.4f})" for r in res)
+        + f"; K1 launches {launches} ({time.perf_counter() - t:.2f} s)")
+    if any(r["mean"] < r["noisy"] + 5.0 for r in res):
+        raise AssertionError("phase 20 (e): compare_ckpts mean below noisy "
+                             "+ 5 dB")
+    if launches != 3 * 8 * len(res):
+        raise AssertionError(f"phase 20 (e): K1 launched {launches} times, "
+                             f"expected {3 * 8 * len(res)}")
+    rec["compare"] = {r["arch"]: r["mean"] for r in res}
+    rec["launches"] = launches
+    return rec
+
+
+def shipped_phase(noisy, scenes, cols9, out_dir) -> dict:
+    """Phase 20: what the product ships, (a)-(e) (see the module
+    docstring), in a temporary directory; prints each part's seconds."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec, secs = {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fn in (
+                ("ab", lambda: shipped_v2_columns(scenes, cols9, out_dir)),
+                ("c", lambda: shipped_sweep(scenes, tmp)),
+                ("d", lambda: shipped_probe(scenes, tmp)),
+                ("e", lambda: shipped_ckpt_tools(noisy, tmp))):
+            t = time.perf_counter()
+            rec[label] = fn()
+            secs[label] = time.perf_counter() - t
+    rec["seconds"] = {**secs, "phase": time.perf_counter() - t0}
+    say("phase 20", f"in {rec['seconds']['phase']:.2f} s: " + ", ".join(
+        f"({k}) {v:.2f} s" for k, v in secs.items()))
+    return rec
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, metavar="DIR",
@@ -3653,7 +4107,7 @@ def main(argv=None) -> dict:
     bench_gru32()
 
     # 9. the frozen held-out quality gate (eval_synth --heldout) ------------
-    heldout_launches, scenes, pge_mean = heldout_gate(out_dir)
+    heldout_launches, scenes, pge_mean, cols9 = heldout_gate(out_dir)
 
     # 10. training (trainer_awgn's AWGNTrainer) ------------------------------
     train_phase(fp32, peak_key)
@@ -3689,6 +4143,9 @@ def main(argv=None) -> dict:
     t = time.perf_counter()
     phase19 = ckpt_phase(noisy, smi)
     say("phase 19", f"in {time.perf_counter() - t:.2f} s")
+
+    # 20. what the product ships: v2 artifacts, sweep, probe, ckpt tools ----
+    phase20 = shipped_phase(noisy, scenes, cols9, out_dir)
 
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
@@ -3747,8 +4204,16 @@ def main(argv=None) -> dict:
         # phase 19: DND's MATLAB v7.3 fixture through DNDDataset and
         # denoise_dnd (3 a box)
         "phase19": {"launches": {"dnd_fixture": phase19["c"]["launches"]},
-                    **phase19}}]}
-    say("done", f"all 19 phases in {time.perf_counter() - T0:.2f} s")
+                    **phase19},
+        # phase 20: the v2 columns (3 a scene, 108 a column), the sweep (3
+        # a scene and a rung: 123), the probe (1 a scene: 33),
+        # compare_ckpts (3 a scene: 48)
+        "phase20": {"launches": {**phase20["ab"]["launches"],
+                                 "sweep": phase20["c"]["launches"],
+                                 "probe": phase20["d"]["launches"],
+                                 "compare_ckpts": phase20["e"]["launches"]},
+                    **phase20}}]}
+    say("done", f"all 20 phases in {time.perf_counter() - T0:.2f} s")
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}
