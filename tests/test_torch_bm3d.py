@@ -179,25 +179,24 @@ def test_cli_bm3d_opt_in_gate_as_jax(tmp_path, monkeypatch):
     assert app.denoiser.bias_corr == "pre" and not app.denoiser.exact_inverse
 
 
-def _reduced_suite(spec_name, size, n_crops):
-    spec = next(s for s in t_heldout.SUITES["v3"] if s.name == spec_name)
-    j_spec = next(s for s in j_heldout.SUITES["v3"] if s.name == spec_name)
+def _reduced_suite(spec_name, size, n_crops, suite="v3"):
+    spec = next(s for s in t_heldout.SUITES[suite] if s.name == spec_name)
+    j_spec = next(s for s in j_heldout.SUITES[suite] if s.name == spec_name)
     return ([dataclasses.replace(spec, size=size, n_crops=n_crops)],
             [dataclasses.replace(j_spec, size=size, n_crops=n_crops)])
 
 
-def test_eval_synth_bm3d_heldout_scene_matches_jax_script(tmp_path,
-                                                          monkeypatch):
-    """photo_mid cut to one crop of 256 px through the port's
-    `eval_synth --cpu --heldout --suite v3 --denoiser bm3d` and through
-    scripts/eval_synth.py with the same flags (its XLA cache pointed into
-    the test's tmp dir)."""
+def _bm3d_scene_against_jax(tmp_path, monkeypatch, suite, scene, extra=()):
+    """`scene` of `suite` cut to one crop of 256 px through the port's
+    `eval_synth --cpu --heldout --suite <suite> --denoiser bm3d` and
+    through scripts/eval_synth.py with the same flags (its XLA cache
+    pointed into the test's tmp dir)."""
     monkeypatch.chdir(REPO)
-    t_suite, j_suite = _reduced_suite("photo_mid", 256, 1)
-    monkeypatch.setitem(t_heldout.SUITES, "v3", t_suite)
-    monkeypatch.setitem(j_heldout.SUITES, "v3", j_suite)
-    flags = ["--cpu", "--heldout", "--suite", "v3", "--scene-filter",
-             "photo_mid", "--denoiser", "bm3d"]
+    t_suite, j_suite = _reduced_suite(scene, 256, 1, suite)
+    monkeypatch.setitem(t_heldout.SUITES, suite, t_suite)
+    monkeypatch.setitem(j_heldout.SUITES, suite, j_suite)
+    flags = ["--cpu", "--heldout", "--suite", suite, "--scene-filter",
+             scene, "--denoiser", "bm3d", *extra]
     spec = importlib.util.spec_from_file_location(
         "jax_eval_synth", os.path.join(REPO, "scripts", "eval_synth.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -217,10 +216,42 @@ def test_eval_synth_bm3d_heldout_scene_matches_jax_script(tmp_path,
     args = eval_synth.parse_args(flags)
     eng = eval_synth.build_engine(args)
     got = eval_synth.run(args, engine=eng)
-    w, g = want["photo_mid"], got["photo_mid"]
+    w, g = want[scene], got[scene]
     assert g["noisy_psnr"] == pytest.approx(w["noisy_psnr"], abs=1e-4)
     assert len(g["psnr"]) == len(w["psnr"]) == 2
     np.testing.assert_allclose(g["psnr"], w["psnr"], atol=0.01, rtol=0)
     assert g["do_no_harm"] == w["do_no_harm"]
     assert g["psnr"][-1] > g["noisy_psnr"]
     assert eng.denoiser.host_s > 0
+    return args
+
+
+def test_eval_synth_bm3d_heldout_scene_matches_jax_script(tmp_path,
+                                                          monkeypatch):
+    """photo_mid cut to one crop of 256 px through the port's
+    `eval_synth --cpu --heldout --suite v3 --denoiser bm3d` and through
+    scripts/eval_synth.py with the same flags (its XLA cache pointed into
+    the test's tmp dir)."""
+    _bm3d_scene_against_jax(tmp_path, monkeypatch, "v3", "photo_mid")
+
+
+# the flags docs/heldout/r5_bm3d_{v1,v2}_cpu.json record in their headers
+# that eval_synth takes without --refine: v1's shrink_full_alpha 0.6 needs
+# --refine in both packages' parsers (scripts/eval_synth.py:152-155), and
+# without a refine neither it nor the shrink mode reaches the BM3D column
+@pytest.mark.parametrize("suite, scene, extra", [
+    ("v1", "ramp_lo", ["--shrink-mode", "iso"]),
+    ("v2", "zone_mid2", []),
+])
+def test_eval_synth_bm3d_suite_matches_jax_script(tmp_path, monkeypatch,
+                                                  suite, scene, extra):
+    """A scene of the v1 / v2 BM3D columns (chip_smoke.py holds the whole
+    columns to their CPU artifacts), cut to one crop of 256 px, under the
+    artifact's header flags, through both eval_synth entries."""
+    with open(os.path.join(REPO, "docs", "heldout",
+                           f"r5_bm3d_{suite}_cpu.json")) as f:
+        head = json.load(f)
+    args = _bm3d_scene_against_jax(tmp_path, monkeypatch, suite, scene, extra)
+    for key in ("model", "arch", "refine", "shrink", "shrink_mode", "suite",
+                "est"):
+        assert getattr(args, key) == head[key], key

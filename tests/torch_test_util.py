@@ -3,6 +3,13 @@
 A file pulls a fixture in with one import, e.g.
 `from torch_test_util import _one_torch_thread  # noqa: F401`.
 """
+import dataclasses
+import importlib.util
+import os
+import re
+import sys
+
+import numpy as np
 import pytest
 import torch
 
@@ -44,3 +51,82 @@ def run_fullframe(mesh, engine, dataset, name):
     of a spawned test group (a module-level function, so that it pickles)."""
     from yondx_torch.eval.fullframe import FullFrameHarness
     return FullFrameHarness(engine, dataset, name, mesh=mesh).run()
+
+
+# ---------------------------------------------------------------------------
+# The probe CLIs (yondx_torch/cli/probe_*.py, bench_matrix.py) against the
+# JAX scripts they port, loaded from scripts/ and run on the CPU.
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+_NUM = re.compile(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:e[-+]?\d+)?|nan|inf")
+_STAMP = re.compile(r"^\d{4}-\d\d-\d\d \d\d:\d\d:\d\d ")
+
+
+def load_jax_script(monkeypatch, tmp_path, name, argv, cut=None):
+    """scripts/<name>.py loaded as a module, ready for its main(): run
+    from the repo root with sys.argv = [name, *argv], its XLA cache in
+    tmp_path, flax's init templates abstract (each leaf is then the
+    checkpoint's; flax's eager init costs ~22 s a net here), and, with
+    cut = (size, n_crops), every held-out scene it builds cut to that
+    size and crop count."""
+    import jax
+    from yondx.eval import heldout as j_heldout
+    from yondx.models import registry as j_registry
+    monkeypatch.chdir(REPO)
+    real = j_registry.init_params
+    monkeypatch.setattr(j_registry, "init_params", lambda *a, **k:
+                        jax.eval_shape(lambda: real(*a, **k)))
+    if cut is not None:
+        build = j_heldout.build_scene
+        monkeypatch.setattr(j_heldout, "build_scene",
+                            lambda spec, n_crops=None: build(
+                                dataclasses.replace(spec, size=cut[0]),
+                                cut[1]))
+    update = jax.config.update
+
+    def redirect(key, value):
+        if key == "jax_compilation_cache_dir":
+            value = str(tmp_path / "xla_cache")
+        return update(key, value)
+
+    monkeypatch.setattr(jax.config, "update", redirect)
+    monkeypatch.setattr(sys, "argv", [name, *argv])
+    spec = importlib.util.spec_from_file_location(
+        f"jax_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def record(monkeypatch, owner, attr, store):
+    """Wrap owner.attr so that each call appends its result to `store`:
+    a float, or a float64 array of a tuple result."""
+    real = getattr(owner, attr)
+
+    def wrapped(*a, **k):
+        out = real(*a, **k)
+        store.append(np.asarray(out, np.float64)
+                     if isinstance(out, tuple) else float(out))
+        return out
+
+    monkeypatch.setattr(owner, attr, wrapped)
+
+
+def cut_scenes(suite, names, size, n_crops=1, key=None):
+    """The port's held-out scenes `names` of `suite` cut to `size` px and
+    n_crops crops, keyed (name, key) as the probes' scene dicts."""
+    from yondx_torch.eval import heldout as t_heldout
+    specs = {s.name: s for s in t_heldout.SUITES[suite]}
+    return {(n, key): t_heldout.build_scene(
+        dataclasses.replace(specs[n], size=size), n_crops) for n in names}
+
+
+def printed(text, pattern):
+    """The printed lines that match `pattern` (re.match), timestamps
+    stripped."""
+    lines = [_STAMP.sub("", ln) for ln in text.splitlines()]
+    return [ln for ln in lines if re.match(pattern, ln)]
+
+
+def layout(line):
+    """A printed line with every number replaced by '#'."""
+    return _NUM.sub("#", line)
