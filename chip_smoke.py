@@ -122,7 +122,23 @@ probe_underest_e2e; (e) probe_sigma_corr; (f) probe_alpha_boost; (g)
 probe_droop; (h) probe_s2d_phase. Each prints its summary beside the
 docs/STATUS.md line it was written from (the TPU's history, not a
 target), holds K1's launches around it to what its code implies, and
-holds its rows on one scene card against CPU by phase 9e's rule. Every
+holds its rows on one scene card against CPU by phase 9e's rule. Phase
+22 runs the one-off benches and trainers (yondx_torch.cli.*): (a)
+`train_gru 1` and `train_unet 1` under a temporary --out (one epoch of
+32 steps of batch 64 over the 2048-crop synthetic set, then the eval at
+sigma 10 / 25 / 50 on 64 crops; epoch 1, finite losses); (b)
+`train_chunked runfiles/Gaussian/GRU_5to50_norm_mix.yml 10 10` twice
+under a temporary --out (epochs 1-10 and DONE, then a resume at epoch 10
+and DONE without a step; rc 0, the `last` checkpoint at epoch 10 and
+unchanged); (c) bench_loader at its defaults with phase 10b's gru32 step
+(the gate: wait under 5%), its corpus written from (a)'s cached set; (d)
+bench_robust_overhead, the MAD regs card vs CPU at rtol 1e-3 and the two
+histogram layouts equal; (e) chroma_probe on the committed 1to50c and
+5to50 gru32 bests, card vs CPU within 1e-4; (f) unet_roofline in bf16
+and f32, its inventory held to a CPU run's, the net's sum at 64 x 64
+card vs CPU within rtol 1e-4. K1 launches 0 around each part, no file
+under the repo's checkpoints/, saved_model/, images/, logs/ or runs/
+changes, and the checkpoints keep their sha256. Every
 profile (`profile_run`) prints K1's
 events in it beside K1's launch counter over the same run, and retakes
 the profile in a process of its own where they differ. Every phase
@@ -137,6 +153,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -832,11 +849,9 @@ JAX_EVAL_UNET = {10: (31.3701, 0.9073), 25: (29.3729, 0.8681),
 def _train_args(runfile, tmp, **dst):
     """A runfile with every place it writes moved under `tmp` (an eval
     record would otherwise overwrite the committed best checkpoint)."""
-    from yondx_torch.config import load_runfile
-    args = load_runfile(os.path.join(REPO, runfile), mode="train")
-    args["fast_ckpt"] = os.path.join(tmp, "ckpt")
-    args["checkpoint"] = os.path.join(tmp, "saved")
-    args["result_dir"] = os.path.join(tmp, "images")
+    from yondx_torch.config import load_runfile, redirect_outputs
+    args = redirect_outputs(load_runfile(os.path.join(REPO, runfile),
+                                         mode="train"), tmp)
     for k in ("dst_train", "dst_eval", "dst_test"):
         args[k].update(dst.get(k, {}))
     return args
@@ -876,13 +891,13 @@ def train_step_card_vs_cpu(tmp) -> None:
 
 
 def train_full_width(tmp, fp32_peak, peak_key, runfile=TRAIN_RUNFILE,
-                     label="train (b)") -> None:
+                     label="train (b)") -> float:
     """(b) GRU_5to50_norm_mix.yml as written (gru32 nf=32, batch 64,
     patch 256, WarmupCosine at 2e-4) from a fresh init equal to JAX's,
     one epoch of 12 steps over a 768-crop synthetic set built once
     through the disk cache, "torch" fields, TF32 off; save_freq 1 so
     that epoch 1 writes its `last` checkpoint. Another AWGN `runfile` of
-    the same layout runs the same way."""
+    the same layout runs the same way. -> the median seconds a step."""
     from yondx_torch.data.datasets import SyntheticSRGBDataset
     from yondx_torch.models.registry import param_count
     from yondx_torch.models.unets import load_model
@@ -953,6 +968,7 @@ def train_full_width(tmp, fp32_peak, peak_key, runfile=TRAIN_RUNFILE,
     if abs(p_run - p_back) > 1e-4:
         raise AssertionError("the last checkpoint evaluates apart from the "
                              "net that wrote it")
+    return step_s
 
 
 def train_quality_anchor(tmp, runfile=TRAIN_RUNFILE, anchor=JAX_EVAL,
@@ -1028,20 +1044,23 @@ def train_distill_resume(tmp) -> None:
         raise AssertionError("distill resume: Adam count or losses wrong")
 
 
-def train_phase(fp32_peak, peak_key) -> None:
+def train_phase(fp32_peak, peak_key) -> float:
     """Phase 10: training on the card, (a)-(d), in a temporary directory
-    that also holds ./logs/; TF32 off throughout."""
+    that also holds ./logs/; TF32 off throughout. -> (b)'s median seconds
+    a gru32 step."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
             train_step_card_vs_cpu(os.path.join(tmp, "a"))
-            train_full_width(os.path.join(tmp, "b"), fp32_peak, peak_key)
+            step_s = train_full_width(os.path.join(tmp, "b"), fp32_peak,
+                                      peak_key)
             train_quality_anchor(os.path.join(tmp, "c"))
             train_distill_resume(os.path.join(tmp, "d"))
         finally:
             os.chdir(REPO)
+    return step_s
 
 
 EST_RUNFILE = "runfiles/Gaussian/EstPGE.yml"
@@ -3984,7 +4003,7 @@ PROBE_HISTORY = {
 }
 
 
-def _k1_run(label, fn, expected):
+def _k1_run(label, fn, expected, phase="phase 21"):
     """fn() on the card with K1's launches counted around it -> (its
     result, {'launches', 'seconds'}); the count must be `expected`."""
     from yondx_torch.nle import moments
@@ -3995,11 +4014,10 @@ def _k1_run(label, fn, expected):
     torch.cuda.synchronize()
     rec = {"launches": moments.LAUNCHES["nle_moments"],
            "seconds": time.perf_counter() - t}
-    say("phase 21", f"{label} at its defaults on the card in "
-        f"{rec['seconds']:.2f} s, K1 launches {rec['launches']} (the code "
-        f"implies {expected})")
+    say(phase, f"{label} on the card in {rec['seconds']:.2f} s, K1 "
+        f"launches {rec['launches']} (the code implies {expected})")
     if rec["launches"] != expected:
-        raise AssertionError(f"phase 21 {label}: K1 launched "
+        raise AssertionError(f"{phase} {label}: K1 launched "
                              f"{rec['launches']} times, expected {expected}")
     return out, rec
 
@@ -4338,6 +4356,352 @@ def probes_phase(scenes, phase20) -> dict:
     return rec
 
 
+# 22. the one-off benches and trainers --------------------------------------
+# what the scripts these CLIs port measured on the TPU: history printed
+# beside the card's rows, not targets
+ONEOFF_HISTORY = {
+    "loader": "docs/STATUS.md:574-577: loader = 0.74% of step time "
+              "steady-state at batch 64 (a v5e step of ~0.29 s)",
+    "robust": "docs/STATUS.md:274-276: self 9.1 ms / collab 13.5 ms at "
+              "2^18 cells (amortised in-graph scan timings)",
+    "chroma": "docs/STATUS.md:394-396: R +0.089 / B -0.090 at B/G 2.8 on "
+              "the nets before the chroma fine-tune",
+    "roofline": "docs/STATUS.md:445-460: whole GuidedResUnet 65.0 ms at "
+                "[1,1792,1792,4] bf16, the isolated convs' sum 239 ms, "
+                "conv3x3 32->32..256 ~11 ms each",
+}
+CHROMA_CKPTS = ["checkpoints/Gaussian/Gaussian_GRU_mix_1to50c_norm_best_"
+                "model.ckpt",
+                "checkpoints/Gaussian/Gaussian_GRU_mix_5to50_norm_best_"
+                "model.ckpt"]
+# dense bf16 tensor-core peak of the cards in _PEAKS (NVIDIA data sheet,
+# at the full power limit)
+_BF16_PEAKS = {"H100 80GB HBM3": 989e12}
+
+
+# where a training runfile writes, relative to the working directory (the
+# Gaussian runfiles' fast_ckpt, checkpoint and result_dir, ./logs/) and
+# the one-off trainers' default --out
+RUNFILE_OUTPUTS = ("checkpoints", "saved_model", "images", "logs", "runs")
+
+
+def _files(root) -> list:
+    """Every file under `root`."""
+    return sorted(os.path.join(d, n) for d, _, names in os.walk(root)
+                  for n in names)
+
+
+def _outputs_state() -> dict:
+    """path -> (size, mtime_ns) of every file under the repo's
+    RUNFILE_OUTPUTS directories."""
+    return {p: (st.st_size, st.st_mtime_ns)
+            for d in RUNFILE_OUTPUTS for p in _files(_repo(d))
+            for st in (os.stat(p),)}
+
+
+def _sha256(path) -> str:
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def oneoff_trainers(tmp) -> dict:
+    """(a) `train_gru 1` and `train_unet 1` under --out tmp/<name>: one
+    epoch of 32 steps of batch 64 over the 2048-crop synthetic set, then
+    eval(epoch=-1) at sigma 25 (the CLI's) and 10 and 50 on 64 crops.
+    Held: epoch 1 reached, 32 steps, every loss finite."""
+    from yondx_torch.cli import train_gru, train_unet
+    from yondx_torch.data.datasets import SyntheticSRGBDataset
+    n_train, n_eval = (train_gru.SYNTHETIC_LEN[k]
+                       for k in ("dst_train", "dst_eval"))
+    t = time.perf_counter()
+    SyntheticSRGBDataset(length=n_train, size=256, seed=1997)
+    SyntheticSRGBDataset(length=n_eval, size=256, seed=2024)
+    rec = {"set_s": time.perf_counter() - t}
+    say("phase 22", f"(a) the {n_train}-crop training set and the "
+        f"{n_eval}-crop eval set through the port's disk cache in "
+        f"{rec['set_s']:.2f} s")
+    for name, cli in (("train_gru", train_gru), ("train_unet", train_unet)):
+        out = os.path.join(tmp, name)
+        res, k1 = _k1_run(f"(a) {name} 1 --out {out}",
+                          lambda: cli.main(["1", "--out", out]), 0,
+                          phase="phase 22")
+        tr = res["trainer"]
+        losses = [s["loss"] for s in tr.steps]
+        n_steps = res["args"]["dst_train"]["synthetic_len"] // \
+            res["args"]["hyper"]["batch_size"]
+        if tr.epoch != 1 or len(losses) != n_steps or \
+                not np.all(np.isfinite(losses)):
+            raise AssertionError(f"phase 22 (a) {name}: epoch {tr.epoch}, "
+                                 f"{len(losses)} steps, losses {losses}")
+        step_ms = 1e3 * float(np.median([s["step_s"] for s in tr.steps[2:]]))
+        psnr = {25: res["eval"][0]}
+        with contextlib.chdir(out):           # eval logs to ./logs/
+            for sigma in (10, 50):
+                psnr[sigma] = tr.eval(epoch=-1, sigma=sigma)[0]
+        written = [os.path.relpath(p, out) for p in _files(out)]
+        arch = res["args"]["arch"]
+        say("phase 22", f"(a) {name}: {arch['name']} nf={arch['nf']}, "
+            f"{step_ms:.2f} ms/step (median of steps 3-{n_steps}), loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}, train PSNR "
+            f"{tr.train_psnr.avg:.4f} dB; eval PSNR after one epoch "
+            + " / ".join(f"{psnr[s]:.4f}" for s in (10, 25, 50))
+            + f" dB at sigma 10 / 25 / 50; files under --out: {written}")
+        rec[name] = {**k1, "step_ms": step_ms, "psnr": psnr,
+                     "loss": [losses[0], losses[-1]]}
+        del tr, res
+    return rec
+
+
+def oneoff_chunked(tmp) -> dict:
+    """(b) `train_chunked runfiles/Gaussian/GRU_5to50_norm_mix.yml 10 10`
+    under --out tmp/chunked, twice: the first chunk trains epochs 1-10,
+    saves `last` at epoch 10, evaluates and says DONE; the second resumes
+    at epoch 10 and says DONE without a step. Held: one chunk, rc 0 and
+    DONE in each run; 10 epochs logged in the first and none in the
+    second; the `last` checkpoint at epoch 10 and the same file after the
+    second run. K1 is counted in this process; the chunks run the
+    trainer of (a), which launches none."""
+    from yondx_torch.cli import train_chunked
+    from yondx_torch.io.ckpt import load_checkpoint
+    out = os.path.join(tmp, "chunked")
+    argv = [TRAIN_RUNFILE, "10", "10", "--out", out]
+    last = os.path.join(out, "ckpt",
+                        "Gaussian_GRU_mix_5to50_norm_last_model.ckpt")
+    rec = {"runs": []}
+    for i in range(2):
+        res, k1 = _k1_run(f"(b) train_chunked run {i + 1}",
+                          lambda: train_chunked.main(argv), 0,
+                          phase="phase 22")
+        chunks = res["chunks"]
+        text = chunks[-1]["text"]
+        epochs = len(re.findall(r"Epoch \d+: lr=", text))
+        run = {**k1, "chunks": len(chunks), "rc": chunks[-1]["rc"],
+               "epochs": epochs, "sha256": _sha256(last)}
+        say("phase 22", f"(b) run {i + 1}: {len(chunks)} chunk(s), rc "
+            f"{run['rc']}, {epochs} epochs logged, DONE "
+            f"{'DONE' in text}, last checkpoint {run['sha256'][:12]}")
+        want_epochs = 10 if i == 0 else 0
+        if len(chunks) != 1 or run["rc"] != 0 or "DONE" not in text or \
+                epochs != want_epochs or \
+                ("chunk finished at epoch 10" in text) != (i == 0):
+            raise AssertionError(f"phase 22 (b) run {i + 1}: {run}; the "
+                                 f"chunk's output:\n{text}")
+        rec["runs"].append(run)
+    epoch = int(load_checkpoint(last)["epoch"])
+    if epoch != 10 or rec["runs"][0]["sha256"] != rec["runs"][1]["sha256"]:
+        raise AssertionError(f"phase 22 (b): the last checkpoint is at "
+                             f"epoch {epoch} or changed in the second run")
+    rec["launches"] = sum(r["launches"] for r in rec["runs"])
+    return rec
+
+
+def oneoff_loader(tmp, step_s) -> dict:
+    """(c) bench_loader at its defaults (1024 files, batch 64, 48 steps,
+    8 workers) with --step-time phase 10b's gru32 step. Its corpus is
+    written from the first 1024 crops of (a)'s 2048-crop set: a crop of
+    SyntheticSRGBDataset depends on its index, seed, size and version
+    alone, not on the set's length (yondx_torch/data/datasets.py
+    `_generate`); three files are held bit-equal to the generator's
+    output. Held: exit code 0, the gate (wait under 5%)."""
+    from yondx_torch.cli import bench_loader
+    from yondx_torch.data.datasets import SyntheticSRGBDataset
+    from yondx_torch.cli.train_gru import SYNTHETIC_LEN
+    n = bench_loader.build_parser().parse_args([]).n
+    root = os.path.join(tmp, "loader")
+    d = os.path.join(root, "train")
+    os.makedirs(d)
+    t = time.perf_counter()
+    cached = SyntheticSRGBDataset(length=SYNTHETIC_LEN["dst_train"],
+                                  size=256, seed=1997)
+    for i in range(n):
+        np.save(os.path.join(d, f"crop_{i:05d}.npy"), cached[i])
+    copy_s = time.perf_counter() - t
+    gen = SyntheticSRGBDataset(length=n, size=256, cache=False,
+                               disk_cache=None)
+    for i in (0, n // 2, n - 1):
+        if not np.array_equal(np.load(os.path.join(d, f"crop_{i:05d}.npy")),
+                              gen[i]):
+            raise AssertionError(f"phase 22 (c): crop {i} of the cached set "
+                                 "is not the generator's")
+    res, k1 = _k1_run("(c) bench_loader", lambda: bench_loader.main(
+        ["--root", root, "--step-time", repr(step_s)]), 0, phase="phase 22")
+    worst = 1e3 * max(res["waits"])
+    say("phase 22", f"(c) bench_loader at a {step_s * 1e3:.2f} ms step "
+        f"(phase 10b's gru32): wait {res['wait_ms']:.3f} ms/step = "
+        f"{res['pct']:.3f}% (gate < 5%), worst single wait {worst:.2f} ms; "
+        f"cold epoch {res['n_cold']} batches in {res['cold_s']:.2f} s; "
+        f"corpus written from the cache in {copy_s:.2f} s (its check in "
+        f"the CLI {res['corpus_s']:.3f} s); TPU history, not a target: "
+        f"{ONEOFF_HISTORY['loader']}")
+    if res["rc"] != 0:
+        raise AssertionError(f"phase 22 (c): the loader waits "
+                             f"{res['pct']:.2f}% of the step, over 5%")
+    return {**k1, "step_ms": step_s * 1e3, "wait_ms": res["wait_ms"],
+            "pct": res["pct"], "worst_ms": worst, "cold_s": res["cold_s"],
+            "copy_s": copy_s}
+
+
+def oneoff_robust() -> dict:
+    """(d) bench_robust_overhead: its rows; the MAD self and collab regs
+    card against the port's CPU at rtol 1e-3 (the robust NLE's parity
+    bound), or within 1e-3 of the variance (beta1 mu + beta2) the CPU's
+    pair gives at the frame's mean intensity mu (the fit clamps a
+    negative beta1 to 0, and this frame's noise is Gaussian alone);
+    hist_two's counts equal to hist_one's, sum_m within 1e-6 relative
+    (float64 sums on the card)."""
+    from yondx_torch.cli import bench_robust_overhead as bro
+    res, k1 = _k1_run("(d) bench_robust_overhead", lambda: bro.main([]), 0,
+                      phase="phase 22")
+    noisy, clean = bro.make_frame(*bro.FRAME)
+    x, dn = torch.from_numpy(noisy), torch.from_numpy(clean)
+    cpu = {"self": bro.mad_self_estimate(x),
+           "collab": bro.mad_collab_estimate(x, dn)}
+    mu = float(noisy.mean())
+    for key, pair in cpu.items():
+        want = np.array([float(v) for v in pair])
+        got = np.array([float(v) for v in res[key]])
+        scale = np.array([mu, 1.0])       # each reg's share of variance
+        var = float(want @ scale)
+        err = np.abs(got - want) * scale
+        say("phase 22", f"(d) {key} regs card {got.tolist()} cpu "
+            f"{want.tolist()}, variance at mu {mu:.4f}: {var:.4e}")
+        if not np.all(err <= np.maximum(1e-3 * np.abs(want) * scale,
+                                        1e-3 * var)):
+            raise AssertionError(f"phase 22 (d): {key} regs card {got} "
+                                 f"against cpu {want}")
+    (c2, s2), (c1, s1) = res["hist_two"], res["hist_one"]
+    rel = float(np.max(np.abs(s1 - s2) / np.maximum(np.abs(s2), 1e-30)))
+    if not np.array_equal(c2, c1.reshape(-1)) or rel > 1e-6:
+        raise AssertionError(f"phase 22 (d): the histogram layouts differ "
+                             f"(sum_m {rel:.3e} relative)")
+    say("phase 22", "(d) ms per op: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in res["rows"].items())
+        + f"; hist layouts: counts equal, sum_m {rel:.2e} relative; TPU "
+        f"history, not a target: {ONEOFF_HISTORY['robust']}")
+    return {**k1, "rows": res["rows"], "sum_m_rel": rel}
+
+
+def oneoff_chroma() -> dict:
+    """(e) chroma_probe on the committed 1to50c and 5to50 flagships at
+    sigma 5, card against CPU (TF32 off): every bias within 1e-4."""
+    from yondx_torch.cli import chroma_probe
+    card, k1 = _k1_run("(e) chroma_probe", lambda: chroma_probe.main(
+        [*CHROMA_CKPTS, "--sigma", "5"]), 0, phase="phase 22")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = chroma_probe.main([*CHROMA_CKPTS, "--sigma", "5", "--cpu"])
+    err = max(float(np.abs(card[p]["bias"][r] - cpu[p]["bias"][r]).max())
+              for p in CHROMA_CKPTS for r in chroma_probe.RATIOS)
+    rows = {os.path.basename(p)[:-len("_best_model.ckpt")]: {
+        "bias_2.8": card[p]["bias"][2.8].tolist(), "worst": card[p]["worst"]}
+        for p in CHROMA_CKPTS}
+    say("phase 22", "(e) at B/G 2.8: " + "; ".join(
+        f"{k} R {v['bias_2.8'][0]:+.4f} B {v['bias_2.8'][3]:+.4f} (worst "
+        f"{v['worst']:.4f})" for k, v in rows.items())
+        + f"; card vs CPU max |diff| {err:.2e}; TPU history, not a target: "
+        f"{ONEOFF_HISTORY['chroma']}")
+    if err > 1e-4:
+        raise AssertionError(f"phase 22 (e): biases card vs CPU {err:.3e}")
+    return {**k1, "rows": rows, "max_abs_diff": err}
+
+
+def oneoff_roofline(fp32_peak, bf16_peak) -> dict:
+    """(f) unet_roofline at its defaults (1792 x 1792, bf16, reps 10),
+    then --dtype f32 (TF32 off), on one input drawn once from numpy's
+    default_rng(2) (the times do not depend on the values; the CLI's own
+    draw, JAX's normal through core.rng, costs seconds of host time at
+    this size and is held at 64 x 64 by the CPU tests). Held: the
+    inventory (tags, multiplicities) equal to a CPU run's at 64 x 64 and
+    its FLOPs those times (1792 / 64)^2; every time positive and finite;
+    the whole net's forward sum at 64 x 64 in f32 card vs CPU within
+    rtol 1e-4."""
+    from yondx_torch.cli import unet_roofline as ur
+    defaults = ur.build_parser().parse_args([])
+    x4 = np.random.default_rng(2).standard_normal(
+        (1, defaults.H, defaults.W, 4), dtype=np.float32)
+    res, rec = {}, {"launches": 0, "seconds": 0.0}
+    for dt in ("bf16", "f32"):
+        args = ur.build_parser().parse_args(["--dtype", dt])
+        res[dt], k1 = _k1_run(f"(f) unet_roofline --dtype {dt}",
+                              lambda: ur.run(args, x4), 0, phase="phase 22")
+        rec = {k: rec[k] + k1[k] for k in rec}
+    small = ["--H", "64", "--W", "64", "--reps", "1", "--dtype", "f32"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        card64, cpu64 = ur.main(small), ur.main([*small, "--cpu"])
+    scale = defaults.H * defaults.W / 64 ** 2
+    want = [(r["tag"], r["n"], r["flops"] * scale) for r in cpu64["rows"]]
+    for dt, r in res.items():
+        got = [(x["tag"], x["n"], x["flops"]) for x in r["rows"]]
+        times = [x["ms"] for x in r["rows"] + r["lane"]] + [r["net_ms"]]
+        if got != want or not all(np.isfinite(t) and t > 0 for t in times):
+            raise AssertionError(f"phase 22 (f) {dt}: inventory {got} "
+                                 f"against the CPU's {want}, times {times}")
+        peak = bf16_peak if dt == "bf16" else fp32_peak
+        say("phase 22", f"(f) {dt}: " + "; ".join(
+            f"{x['tag']} x{x['n']} {x['ms']:.3f} ms {x['tflops']:.1f} TF/s "
+            f"({100 * x['tflops'] * 1e12 / peak:.1f}%)" for x in r["rows"])
+            + f"; isolated sum {r['sum_ms']:.2f} ms, whole net "
+            f"{r['net_ms']:.2f} ms ({r['mps']:.1f} MP/s), slack "
+            f"{r['slack_pct']:+.1f}%; lane refs " + ", ".join(
+                f"32->{x['cout']} {x['ms']:.3f} ms {x['tflops']:.1f} TF/s"
+                for x in r["lane"])
+            + f" (% of {peak / 1e12:.0f} TF/s, the {dt} peak)")
+    rel = abs(card64["net_sum"] - cpu64["net_sum"]) / abs(cpu64["net_sum"])
+    say("phase 22", f"(f) whole net at 64 x 64 f32: sum card "
+        f"{card64['net_sum']:.6f} cpu {cpu64['net_sum']:.6f} ({rel:.2e} "
+        f"relative); TPU history, not a target: "
+        f"{ONEOFF_HISTORY['roofline']}")
+    if rel > 1e-4:
+        raise AssertionError(f"phase 22 (f): the net's sum card vs CPU "
+                             f"{rel:.3e} relative")
+    return {**rec, **{dt: {k: r[k] for k in ("sum_ms", "net_ms", "mps",
+                                               "slack_pct")}
+                      | {"rows": {x["tag"]: x["ms"] for x in r["rows"]},
+                         "lane": {x["cout"]: x["ms"] for x in r["lane"]}}
+                      for dt, r in res.items()}}
+
+
+def oneoff_phase(step_s, fp32_peak, peak_key) -> dict:
+    """Phase 22: the one-off benches and trainers (yondx_torch.cli's
+    train_gru, train_unet, train_chunked, bench_loader,
+    bench_robust_overhead, chroma_probe, unet_roofline), (a)-(f) (see the
+    module docstring); TF32 off. K1 is held to 0 launches around each
+    part; no file under the repo's RUNFILE_OUTPUTS directories changes or
+    appears (the trainers write under their --out), and every file under
+    checkpoints/ keeps its sha256."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ckpts = {p: _sha256(p) for p in _files(_repo("checkpoints"))}
+    state = _outputs_state()
+    rec, secs = {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fn in (
+                ("a", lambda: oneoff_trainers(tmp)),
+                ("b", lambda: oneoff_chunked(tmp)),
+                ("c", lambda: oneoff_loader(tmp, step_s)),
+                ("d", oneoff_robust),
+                ("e", oneoff_chroma),
+                ("f", lambda: oneoff_roofline(fp32_peak,
+                                              _BF16_PEAKS[peak_key]))):
+            t = time.perf_counter()
+            rec[label] = fn()
+            secs[label] = time.perf_counter() - t
+    after = _outputs_state()
+    changed = sorted(p for p in set(state) | set(after)
+                     if state.get(p) != after.get(p))
+    moved = sorted(p for p, h in ckpts.items() if _sha256(p) != h)
+    if changed or moved:
+        raise AssertionError(f"phase 22 wrote under the repo: {changed}; "
+                             f"checkpoints changed: {moved}")
+    rec["seconds"] = {**secs, "phase": time.perf_counter() - t0}
+    say("phase 22", f"in {rec['seconds']['phase']:.2f} s: " + ", ".join(
+        f"({k}) {v:.2f} s" for k, v in secs.items()) + "; no file under "
+        f"the repo's {'/, '.join(RUNFILE_OUTPUTS)}/ changed, the "
+        f"{len(ckpts)} files under checkpoints/ with their sha256")
+    return rec
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, metavar="DIR",
@@ -4595,7 +4959,7 @@ def main(argv=None) -> dict:
     heldout_launches, scenes, pge_mean, cols9 = heldout_gate(out_dir)
 
     # 10. training (trainer_awgn's AWGNTrainer) ------------------------------
-    train_phase(fp32, peak_key)
+    gru32_step_s = train_phase(fp32, peak_key)
 
     # 11. noise-estimation training (train_est's PGEstTrainer) -------------
     k19 = est_train_phase(bw, fp32, scenes, pge_mean, out_dir)
@@ -4634,6 +4998,9 @@ def main(argv=None) -> dict:
 
     # 21. the probes behind the rescue gate, iteration policy and refine ----
     phase21 = probes_phase(scenes, phase20)
+
+    # 22. the one-off benches and trainers -----------------------------------
+    phase22 = oneoff_phase(gru32_step_s, fp32, peak_key)
 
     record = {"kernels": [{
         "name": "nle_moments", "route": "cuda",
@@ -4713,8 +5080,20 @@ def main(argv=None) -> dict:
             "probe_alpha_boost": phase21["f"]["launches"],
             "probe_droop": phase21["g"]["launches"],
             "probe_s2d_phase": phase21["h"]["launches"]},
-            **phase21}}]}
-    say("done", f"all 21 phases in {time.perf_counter() - T0:.2f} s")
+            **phase21},
+        # phase 22: the one-off benches and trainers (0 in each part: no
+        # NLE fit on their paths; (b)'s chunks run (a)'s trainer in
+        # processes of their own)
+        "phase22": {"launches": {
+            "train_gru_unet": sum(phase22["a"][n]["launches"]
+                                  for n in ("train_gru", "train_unet")),
+            "train_chunked": phase22["b"]["launches"],
+            "bench_loader": phase22["c"]["launches"],
+            "bench_robust_overhead": phase22["d"]["launches"],
+            "chroma_probe": phase22["e"]["launches"],
+            "unet_roofline": phase22["f"]["launches"]},
+            **phase22}}]}
+    say("done", f"all 22 phases in {time.perf_counter() - T0:.2f} s")
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,
                                    "count": torch.cuda.device_count()}}

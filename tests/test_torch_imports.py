@@ -135,3 +135,23 @@ def test_no_port_source_names_h5py_zstandard_tensorstore_or_orbax():
         for pkg_name in ("zstandard", "tensorstore", "orbax"):
             assert not re.search(rf"^\s*(import|from)\s+{pkg_name}\b", src,
                                  re.M), (path, pkg_name)
+
+
+ONE_OFF_CLIS = ["yondx_torch.cli." + n for n in (
+    "bench_loader", "bench_robust_overhead", "chroma_probe", "unet_roofline",
+    "train_gru", "train_unet", "train_chunked")]
+
+
+def test_one_off_clis_are_in_the_refused_import_run():
+    """The seven one-off benches and trainers (the port's last slice) are
+    among the modules the guarded run imports, and none of their sources
+    names jax or the JAX package."""
+    names = [m.name for m in pkgutil.walk_packages(yondx_torch.__path__,
+                                                   "yondx_torch.")]
+    assert set(ONE_OFF_CLIS) <= set(names)
+    for name in ONE_OFF_CLIS:
+        with open(os.path.join(REPO, *name.split(".")) + ".py") as f:
+            src = f.read()
+        for pkg in ("jax", "flax", "yondx."):
+            assert f"import {pkg}" not in src and f"from {pkg}" not in src, \
+                (name, pkg)

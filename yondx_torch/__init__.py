@@ -7,6 +7,8 @@ the GPU (`device="cuda"`) unless the caller passes `device="cpu"`.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .core import vml
@@ -29,3 +31,14 @@ def resolve_device(device=None) -> torch.device:
             "yondx_torch runs on the GPU by default and no CUDA device is "
             "available; pass device='cpu' to run the plain CPU path")
     return dev
+
+
+def child_env() -> dict:
+    """os.environ with this package's root first on PYTHONPATH: the
+    environment of a child interpreter that imports yondx_torch from any
+    working directory."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    return env

@@ -29,3 +29,16 @@ def load_runfile(path: str, mode: Optional[str] = None,
                 args[key]["root_dir"] = os.path.join(host_prefix,
                                                      args[key]["root_dir"])
     return args
+
+
+def redirect_outputs(args: Dict[str, Any], root: str) -> Dict[str, Any]:
+    """Move every place a training runfile writes under `root`: fast_ckpt
+    (last and best checkpoints), checkpoint (the epoch snapshots) and
+    result_dir (samples and plots). The runfiles name the repo's
+    checkpoints/Gaussian, where an eval record would overwrite a
+    committed best checkpoint. Returns `args`, edited in place."""
+    root = os.path.abspath(root)
+    args["fast_ckpt"] = os.path.join(root, "ckpt")
+    args["checkpoint"] = os.path.join(root, "saved")
+    args["result_dir"] = os.path.join(root, "images")
+    return args

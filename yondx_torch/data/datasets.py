@@ -30,6 +30,8 @@ import torch
 
 # the port's own cache directory (the JAX package uses /tmp/yondx_synth)
 DEFAULT_DISK_CACHE = os.path.join(tempfile.gettempdir(), "yondx_torch_synth")
+# a synthetic set of this many crops or more is built in worker processes
+PARALLEL_BUILD_MIN = 512
 
 
 class NpyFolderDataset:
@@ -56,8 +58,13 @@ class NpyFolderDataset:
 
     def _probe_headers(self):
         """One stat per file and a 16-file header sample: a corpus of equal
-        file sizes and identical sampled headers gets one data offset."""
+        file sizes and identical sampled headers gets one data offset.
+        The headers are read with numpy's public readers of format 1.0
+        and 2.0 (newer numpy has no `format._read_array_header`); a file of
+        another format leaves the corpus to the per-item path."""
         from numpy.lib import format as npf
+        readers = {(1, 0): npf.read_array_header_1_0,
+                   (2, 0): npf.read_array_header_2_0}
         self._fast = False
         if len({os.path.getsize(p) for p in self.paths}) != 1:
             return
@@ -66,8 +73,10 @@ class NpyFolderDataset:
         shape = dtype = off = None
         for i in sorted(sample):
             with open(self.paths[i], "rb") as f:
-                ver = npf.read_magic(f)
-                shp, fortran, dt = npf._read_array_header(f, ver)
+                read = readers.get(npf.read_magic(f))
+                if read is None:
+                    return
+                shp, fortran, dt = read(f)
                 if fortran:
                     return
                 if shape is None:
@@ -103,9 +112,9 @@ class SyntheticSRGBDataset:
     + band-limited textures + sharp edges, per-index deterministic (the
     eval-mode setup_seed(idx) contract). With `cache` and a `disk_cache`
     directory every item is built at construction into
-    v{version}_s{seed}_p{size}_n{length}.npy there (or memory-mapped from
-    it when present); otherwise items are memoized in RAM as they are
-    built."""
+    v{version}_s{seed}_p{size}_n{length}.npy there, unless present, and
+    memory-mapped from it; otherwise items are memoized in RAM as they
+    are built."""
 
     def __init__(self, length: int = 1024, size: int = 256, seed: int = 1997,
                  cache: bool = True, disk_cache: str = DEFAULT_DISK_CACHE,
@@ -123,18 +132,42 @@ class SyntheticSRGBDataset:
             os.makedirs(disk_cache, exist_ok=True)
             path = os.path.join(disk_cache,
                                 f"v{version}_s{seed}_p{size}_n{length}.npy")
-            if os.path.exists(path):
-                self._disk = np.load(path, mmap_mode="r")
-            else:
-                arr = np.stack([self._generate(i) for i in range(length)])
+            if not os.path.exists(path):
                 tmp = path.replace(".npy", f".tmp{os.getpid()}.npy")
-                np.save(tmp, arr)
+                self._build(tmp)
                 os.replace(tmp, path)
-                self._disk = arr
+            self._disk = np.load(path, mmap_mode="r")
             self._cache = None
 
     def __len__(self):
         return self.length
+
+    def _build(self, path: str) -> None:
+        """Every crop written into the .npy file `path`, [length, size,
+        size, 3] uint8: by up to 8 worker interpreters, each filling its
+        rows of the memory-mapped file, for a set of PARALLEL_BUILD_MIN
+        crops or more (a crop depends on its index alone, so the file is
+        the same)."""
+        n = self.length
+        out = np.lib.format.open_memmap(path, mode="w+", dtype=np.uint8,
+                                        shape=(n, self.size, self.size, 3))
+        workers = min(8, os.cpu_count() or 1)
+        if n < PARALLEL_BUILD_MIN or workers < 2:
+            _fill(self, out, 0, n)
+            out.flush()
+            return
+        del out
+        import subprocess
+        import sys
+        from .. import child_env
+        cuts = np.linspace(0, n, workers + 1).astype(int)
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "yondx_torch.data.datasets", path,
+             *map(str, (self.seed, self.size, self.version, a, b))],
+            env=child_env()) for a, b in zip(cuts[:-1], cuts[1:]) if b > a]
+        rcs = [p.wait() for p in procs]
+        if any(rcs):
+            raise RuntimeError(f"building {path}: worker exit codes {rcs}")
 
     def __getitem__(self, idx: int) -> np.ndarray:
         if self._disk is not None:
@@ -254,6 +287,12 @@ class SyntheticSRGBDataset:
 
 
 
+def _fill(ds: SyntheticSRGBDataset, out, start: int, stop: int) -> None:
+    """Crops start..stop-1 of `ds` into the rows of `out`."""
+    for i in range(start, stop):
+        out[i] = ds._generate(i)
+
+
 def _bilinear_resize(g: np.ndarray, S: int) -> np.ndarray:
     gh, gw = g.shape
     yi = np.linspace(0, gh - 1, S)
@@ -341,7 +380,9 @@ def to_unit(batch, device) -> torch.Tensor:
 class BatchLoader:
     """Shuffled, drop-last batches with a thread pool of `workers` that
     keeps `prefetch` batches in flight and yields them in submission
-    order, so the order is that of a single-threaded loader."""
+    order, so the order is that of a single-threaded loader. The pool
+    lives as long as the loader (or until `close`), and the reads run on
+    across an epoch's end into the next epoch's first batches."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, prefetch: int = 8, workers: int = 8):
@@ -351,9 +392,20 @@ class BatchLoader:
         self.seed = seed
         self.prefetch = max(prefetch, workers)
         self.workers = max(1, workers)
+        self._pool = None
+        # (epoch, futures of its first batches) read ahead by the epoch
+        # before it
+        self._ahead = (None, [])
 
     def __len__(self):
         return len(self.ds) // self.bs
+
+    def close(self) -> None:
+        """Stop the pool; batches read ahead are dropped."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+        self._ahead = (None, [])
 
     def _load_batch(self, idxs) -> np.ndarray:
         rb = getattr(self.ds, "read_batch", None)
@@ -363,24 +415,59 @@ class BatchLoader:
                 return out
         return np.stack([self.ds[int(i)] for i in idxs])
 
-    def epoch(self, epoch: int = 0) -> Iterator[np.ndarray]:
-        """The batches of an epoch, in the order that
-        np.random.default_rng(seed + epoch) shuffles the items into."""
-        from concurrent.futures import ThreadPoolExecutor
+    def _batches(self, epoch: int) -> list:
         order = np.arange(len(self.ds))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
-        starts = iter(range(0, len(order) - self.bs + 1, self.bs))
-        with ThreadPoolExecutor(max_workers=self.workers) as pool:
-            pending = []
-            for s in starts:
-                pending.append(pool.submit(self._load_batch,
-                                           order[s:s + self.bs]))
-                if len(pending) >= self.prefetch:
-                    break
-            for s in starts:
-                yield pending.pop(0).result()
-                pending.append(pool.submit(self._load_batch,
-                                           order[s:s + self.bs]))
+        return [order[s:s + self.bs]
+                for s in range(0, len(order) - self.bs + 1, self.bs)]
+
+    def epoch(self, epoch: int = 0) -> Iterator[np.ndarray]:
+        """The batches of an epoch, in the order that
+        np.random.default_rng(seed + epoch) shuffles the items into. Once
+        every batch of the epoch is in flight, the first batches of epoch
+        + 1 are read too, and the next call for that epoch starts from
+        them: a loop over consecutive epochs does not wait at each
+        boundary for the reads to start over."""
+        from concurrent.futures import ThreadPoolExecutor
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=self.workers)
+        (e, ahead), self._ahead = self._ahead, (None, [])
+        pending = list(ahead) if e == epoch else []
+        todo = self._batches(epoch)[len(pending):]
+        following, nxt = None, []
+
+        def top_up():
+            nonlocal following
+            while len(pending) + len(nxt) < self.prefetch:
+                if todo:
+                    pending.append(self._pool.submit(self._load_batch,
+                                                     todo.pop(0)))
+                    continue
+                if following is None:
+                    following = self._batches(epoch + 1)
+                if len(nxt) == len(following):
+                    return
+                nxt.append(self._pool.submit(self._load_batch,
+                                             following[len(nxt)]))
+
+        try:
+            top_up()
             while pending:
                 yield pending.pop(0).result()
+                top_up()
+        finally:
+            self._ahead = (epoch + 1, nxt)
+
+
+if __name__ == "__main__":
+    # a worker of SyntheticSRGBDataset._build: PATH SEED SIZE VERSION START
+    # STOP fills rows START..STOP-1 of the .npy file PATH
+    import sys
+    _path, *_ints = sys.argv[1:]
+    _seed, _size, _version, _start, _stop = map(int, _ints)
+    _rows = np.load(_path, mmap_mode="r+")
+    _fill(SyntheticSRGBDataset(length=len(_rows), size=_size, seed=_seed,
+                               cache=False, version=_version),
+          _rows, _start, _stop)
+    _rows.flush()
