@@ -1,0 +1,9 @@
+"""CUDA device mallocs (cudaMalloc: the caching allocator growing) made
+inside the fused entry's `yondx.frame` spans, per frame (spans.py)."""
+
+
+def read(r):
+    if not r.get("span_frames"):
+        return None
+    return sum(v for k, v in r["span_mallocs"].items()
+               if k != "between frames") / r["span_frames"]

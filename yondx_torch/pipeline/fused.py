@@ -10,8 +10,8 @@
 
 PyTorch runs eagerly, so where the JAX graph keeps everything on the
 device with selects and `lax.cond`, this port does the same arithmetic
-with `torch.where`, except the rescue gate: a Python `if` on `need`, the
-one host sync of a round.
+with `torch.where`, except the rescue gate: a Python `if` on `need`, a
+host sync.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.profiling import span
 from ..nle.fit import masked_linefit, nonsat_weights
 from ..nle.moments import nle_moments
 from ..nle.robust import (COLLAB_BAND, combine_estimates, flat_floor_stats,
@@ -200,38 +201,49 @@ def make_fused_blind_denoiser(net, lut: np.ndarray, *, guided: bool = True,
     stats = {"second_passes": 0}
 
     def denoise(x01, K, sigma, scale):
-        if sigma_corr == "adaptive":
-            corr = adaptive_sigma_corr(x01, K, sigma, scale)
-        else:
-            corr = torch.tensor(float(sigma_corr), device=dev)
-        xd = x01 * scale
-        z = vst(xd, sigma, gain=K)
+        with span("denoise"):
+            return _denoise(x01, K, sigma, scale)
+
+    def _denoise(x01, K, sigma, scale):
+        with span("sigma_corr"):
+            if sigma_corr == "adaptive":
+                corr = adaptive_sigma_corr(x01, K, sigma, scale)
+            else:
+                corr = torch.tensor(float(sigma_corr), device=dev)
+        with span("vst"):
+            xd = x01 * scale
+            z = vst(xd, sigma, gain=K)
         if bias_corr == "pre":
-            # gather-free bias: Chebyshev fit of the per-call curve
-            curve = device_bias_curve(lut_dev, K, sigma, lut_sgext_dev)
-            coeffs = cheb_fit_curve(curve)
-            z = z - lookup_bias_curve_cheb(torch.clamp(xd, min=0.0), coeffs,
-                                           K)
-        lower = vst(torch.zeros((), device=dev), sigma, gain=K)
-        upper = vst(scale, sigma, gain=K)
-        nsr = 1.0 / (upper - lower)
-        z = (z - lower) * nsr
+            with span("bias"):
+                # gather-free bias: Chebyshev fit of the per-call curve
+                curve = device_bias_curve(lut_dev, K, sigma, lut_sgext_dev)
+                coeffs = cheb_fit_curve(curve)
+                z = z - lookup_bias_curve_cheb(torch.clamp(xd, min=0.0),
+                                               coeffs, K)
+        with span("vst"):
+            lower = vst(torch.zeros((), device=dev), sigma, gain=K)
+            upper = vst(scale, sigma, gain=K)
+            nsr = 1.0 / (upper - lower)
+            z = (z - lower) * nsr
         z_noisy = z
-        z = run_net(net, z, nsr * corr, guided, pad_base, compute_dtype)
+        with span("net"):
+            z = run_net(net, z, nsr * corr, guided, pad_base, compute_dtype)
         z_raw = z
         if refine:
-            z = wiener_refine(z, z_noisy, noise_var=nsr ** 2, k=refine_k,
-                              beta=refine_beta, x01=z,
-                              noise_floor=refine_floor,
-                              residual_shrink=refine_shrink,
-                              shrink_lam=refine_shrink_lam,
-                              shrink_full_alpha=refine_shrink_full_alpha,
-                              shrink_mode=refine_shrink_mode)
+            with span("refine"):
+                z = wiener_refine(z, z_noisy, noise_var=nsr ** 2, k=refine_k,
+                                  beta=refine_beta, x01=z,
+                                  noise_floor=refine_floor,
+                                  residual_shrink=refine_shrink,
+                                  shrink_lam=refine_shrink_lam,
+                                  shrink_full_alpha=refine_shrink_full_alpha,
+                                  shrink_mode=refine_shrink_mode)
 
         def finish(zz):
-            zz = zz * (upper - lower) + lower
-            xx = inverse_vst(zz, sigma, gain=K, exact=exact_inverse)
-            return torch.clamp(xx / scale, 0.0, 1.0)
+            with span("inverse"):
+                zz = zz * (upper - lower) + lower
+                xx = inverse_vst(zz, sigma, gain=K, exact=exact_inverse)
+                return torch.clamp(xx / scale, 0.0, 1.0)
 
         # the raw (un-refined) output feeds the next round's collab NLE
         out = finish(z)
@@ -280,70 +292,87 @@ def make_fused_blind_denoiser(net, lut: np.ndarray, *, guided: bool = True,
             return collab_fit(lr, dn)
 
     def fused_body(rggb, scale):
-        b1, b2 = self_est(rggb)
-        b1 = torch.maximum(b1, 1e-4 / scale)            # defensive K clamp
-        K0 = b1 * scale
-        sig0 = torch.sqrt(torch.clamp(b2, min=0.0)) * scale
+        with span("nle.self"):
+            b1, b2 = self_est(rggb)
+            b1 = torch.maximum(b1, 1e-4 / scale)        # defensive K clamp
+            K0 = b1 * scale
+            sig0 = torch.sqrt(torch.clamp(b2, min=0.0)) * scale
         if policy == "rescue" and max_iter > 0:
-            # certified-under-estimate gate, measured once on the input
-            floor0, mu_mid0 = flat_floor_stats(rggb)
-            ffrac = floor0 ** 2 / torch.clamp(
-                b1 * mu_mid0 + torch.clamp(b2, min=0.0), min=1e-30)
+            with span("gate.stats"):
+                # certified-under-estimate gate, measured once on the input
+                floor0, mu_mid0 = flat_floor_stats(rggb)
+                ffrac = floor0 ** 2 / torch.clamp(
+                    b1 * mu_mid0 + torch.clamp(b2, min=0.0), min=1e-30)
         dn, dn_raw = denoise(rggb, K0, sig0, scale)
 
-        regs = [torch.stack([b1, b2])]
-        for _ in range(max_iter):
-            # collab NLE sees the raw (un-refined) net output
-            c1, c2 = collab_est(rggb, dn_raw, (b1, b2))
-            c2 = torch.where(c2 < 0, c1 ** 2, c2)        # beta2<0 -> beta1^2
-            ok = c1 > 0                                  # beta1<=0: keep
-            K1 = torch.maximum(c1, 1e-4 / scale) * scale
-            sig1 = torch.sqrt(c2) * scale
-            mu = torch.mean(torch.clamp(dn_raw, 0.0, 1.0))
-            agree = reg_agreement((regs[-1][0], regs[-1][1]), (c1, c2), mu)
-            if policy == "rescue":
-                # the rescue weight is exactly 0 unless `need` holds, so
-                # the second pass is skipped otherwise; JAX decides this
-                # on the device with lax.cond, eager PyTorch needs the
-                # value on the host: this bool() is the round's one sync
-                need = ok & (agree > ptol) & (ffrac > DEFAULT_FLOOR_FRAC)
-                if bool(need):
+        # the rounds' bookkeeping is the gate's; the collab NLE and a
+        # second pass are spans of their own inside it
+        with span("gate"):
+            regs = [torch.stack([b1, b2])]
+            for _ in range(max_iter):
+                with span("nle.collab"):
+                    # collab NLE sees the raw (un-refined) net output
+                    c1, c2 = collab_est(rggb, dn_raw, (b1, b2))
+                c2 = torch.where(c2 < 0, c1 ** 2, c2)    # beta2<0 -> beta1^2
+                ok = c1 > 0                              # beta1<=0: keep
+                K1 = torch.maximum(c1, 1e-4 / scale) * scale
+                sig1 = torch.sqrt(c2) * scale
+                mu = torch.mean(torch.clamp(dn_raw, 0.0, 1.0))
+                agree = reg_agreement((regs[-1][0], regs[-1][1]), (c1, c2),
+                                      mu)
+                if policy == "rescue":
+                    # the rescue weight is exactly 0 unless `need` holds,
+                    # so the second pass is skipped otherwise; JAX decides
+                    # this on the device with lax.cond, eager PyTorch
+                    # needs the value on the host. This bool() is one of
+                    # a product frame's 18 host syncs on an H100
+                    # (perfbench/spans.py). The others are .item() reads
+                    # (4 in the bias curve, its 0-d LUT column indices; 2
+                    # in the gate statistics; 2 in each NLE) and blocking
+                    # copies of host values (4 in the bias curve, its
+                    # grids and Chebyshev tables; 1 each in the gate
+                    # statistics, the refine and _prepare's scale).
+                    need = ok & (agree > ptol) & (ffrac > DEFAULT_FLOOR_FRAC)
+                    if bool(need):
+                        stats["second_passes"] += 1
+                        dn1, dn_raw = denoise(rggb, K1, sig1, scale)
+                        dn = combine_rounds(dn, dn1, agree, policy=policy,
+                                            tol=ptol, floor_frac=ffrac,
+                                            floor_frac_tol=DEFAULT_FLOOR_FRAC)
+                else:
+                    # the second pass always runs; an aborted round (ok
+                    # False) keeps the previous output by a select
                     stats["second_passes"] += 1
-                    dn1, dn_raw = denoise(rggb, K1, sig1, scale)
-                    dn = combine_rounds(dn, dn1, agree, policy=policy,
-                                        tol=ptol, floor_frac=ffrac,
-                                        floor_frac_tol=DEFAULT_FLOOR_FRAC)
-            else:
-                # the second pass always runs; an aborted round (ok
-                # False) keeps the previous output by a select
-                stats["second_passes"] += 1
-                dn1, dn1_raw = denoise(rggb, K1, sig1, scale)
-                dn1 = combine_rounds(dn, dn1, agree, policy=policy, tol=ptol,
-                                     floor_frac=None)
-                dn = torch.where(ok, dn1, dn)
-                dn_raw = torch.where(ok, dn1_raw, dn_raw)
-            regs.append(torch.where(ok, torch.stack([c1, c2]), regs[-1]))
-        return dn, torch.stack(regs)
+                    dn1, dn1_raw = denoise(rggb, K1, sig1, scale)
+                    dn1 = combine_rounds(dn, dn1, agree, policy=policy,
+                                         tol=ptol, floor_frac=None)
+                    dn = torch.where(ok, dn1, dn)
+                    dn_raw = torch.where(ok, dn1_raw, dn_raw)
+                regs.append(torch.where(ok, torch.stack([c1, c2]), regs[-1]))
+            return dn, torch.stack(regs)
 
     def _prepare(rggb, scale):
-        rggb = torch.as_tensor(rggb, dtype=torch.float32, device=dev)
-        scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
-        return rggb, scale.reshape(())
+        with span("prepare"):
+            rggb = torch.as_tensor(rggb, dtype=torch.float32, device=dev)
+            scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+            return rggb, scale.reshape(())
 
     if batch_mode == "frames":
         @torch.no_grad()
         def fn(frames, scale):
-            frames, scale = _prepare(frames, scale)
-            outs, regs = [], []
-            for i in range(frames.shape[0]):
-                dn, r = fused_body(frames[i:i + 1], scale)
-                outs.append(dn[0])
-                regs.append(r)
-            return torch.stack(outs), torch.stack(regs)
+            with span("frame"):
+                frames, scale = _prepare(frames, scale)
+                outs, regs = [], []
+                for i in range(frames.shape[0]):
+                    dn, r = fused_body(frames[i:i + 1], scale)
+                    outs.append(dn[0])
+                    regs.append(r)
+                return torch.stack(outs), torch.stack(regs)
     elif batch_mode == "scene":
         @torch.no_grad()
         def fn(rggb, scale):
-            return fused_body(*_prepare(rggb, scale))
+            with span("frame"):
+                return fused_body(*_prepare(rggb, scale))
     else:
         raise ValueError(f"unknown batch_mode {batch_mode!r}")
     fn.stats = stats
