@@ -5,7 +5,9 @@
 Builds the port's CUDA kernel K1 (NLE box moments) with plain nvcc, holds
 it against its plain PyTorch version on the card in its three flavours
 (self fit; collab fit of dn and of lr) at the fused path's band shape and
-the engine's whole-plane shape and times each, holds the card path
+the engine's whole-plane shape and times each, holds the Wiener refine's kernels (R1, csrc/refine.cu) against
+their plain version at the product's shape, a sharded rank and a small
+plane and times them, holds the card path
 against the port's CPU path end to end on a small frame, then drives the
 product path (s2dt16 net from the committed checkpoint, bf16, robust NLE,
 refine, adaptive guidance, rescue policy, banded NLE) on a synthetic
@@ -255,6 +257,114 @@ def k1_err64(x, k, inner, flavours=K1_FLAVOURS) -> dict:
 def fmt_err64(e: dict) -> str:
     return "; ".join(f"{f} " + ", ".join(f"{m} {v:.2e}" for m, v in d.items())
                      for f, d in e.items())
+
+
+def refine_inputs(dev, shape, nsr, seed):
+    """(z_dn, z_noisy) for the refine on the card, [..., h, w, 4] in VST
+    units: a dark-heavy scene with clipped highlights, edges and texture,
+    the noisy planes quantized to 10-bit levels as a raw's are, and a
+    'denoised' version a fifth as noisy."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = shape[-3], shape[-2]
+    yy = torch.linspace(0, 1, h, device=dev)[:, None, None]
+    xx = torch.linspace(0, 1, w, device=dev)[None, :, None]
+    ch = torch.arange(4, device=dev)[None, None, :]
+    clean = (0.08 + 0.25 * torch.sin(23 * xx * yy + ch) ** 8
+             + 0.5 * (((xx - 0.7) ** 2 + (yy - 0.3) ** 2) < 0.01)
+             + 0.04 * torch.sin(301 * xx + 170 * yy)).clamp(0, 1)
+    clean = clean.expand(shape)
+    z_noisy = clean + nsr * torch.randn(shape, generator=g, device=dev)
+    z_noisy = torch.round(z_noisy.clamp(0, 1) * 1023) / 1023
+    z_dn = clean + 0.2 * nsr * torch.randn(shape, generator=g, device=dev)
+    return z_dn.contiguous(), z_noisy.contiguous()
+
+
+# R1's tolerance against its plain version on the card: fp32 direct box
+# sums (plain: float64 scans of centered planes) and contracted
+# multiply-adds, a few ulps of O(1) values; the floor's table is exact
+R1_TOL = 1e-5
+
+
+def refine_vs_plain(label, args, kw) -> dict:
+    """R1 (wiener_refine on CUDA tensors) against wiener_refine_plain on
+    the same inputs, and the bucket floor's table bit for bit: raises past
+    R1_TOL or on a table that differs."""
+    from yondx_torch.pipeline import refine, refine_kernels
+    z_dn, z_noisy = args
+    var = kw.get("noise_var", 1.0)
+    rest = {n: v for n, v in kw.items() if n != "noise_var"}
+    refine_kernels.reset_launches()
+    got = refine.wiener_refine(z_dn, z_noisy, var, **rest)
+    launches = dict(refine_kernels.LAUNCHES)
+    ref = refine.wiener_refine_plain(z_dn, z_noisy, var, **rest)
+    err = float((got - ref).abs().max())
+    table = refine_kernels.bucket_floor_table(z_dn, z_noisy, var)
+    table_ref = refine._bucket_floor_table(z_noisy, z_dn, var).reshape(-1)
+    same = bool(torch.equal(table, table_ref))
+    measured = int((table_ref != torch.as_tensor(
+        var, dtype=torch.float32, device=table_ref.device)).sum())
+    say("R1 vs plain", f"{label} {list(z_dn.shape)}: max abs err {err:.3e} "
+        f"(tol {R1_TOL:.0e}); floor table {'equal' if same else 'DIFFERS'} "
+        f"({measured}/{table.numel()} buckets measured); launches "
+        f"{launches}")
+    if not same:
+        raise AssertionError(f"R1 {label}: bucket table differs by "
+                             f"{float((table - table_ref).abs().max())}")
+    if not err <= R1_TOL:
+        raise AssertionError(f"R1 {label}: err {err:.3e} > {R1_TOL:.0e}")
+    if launches != {"refine_floor": 3, "refine": 3}:
+        raise AssertionError(f"R1 {label}: launches {launches}")
+    return {"shape": list(z_dn.shape), "max_abs_err": err,
+            "table_equal": same, "buckets_measured": measured}
+
+
+def refine_phase(dev, bw, flush) -> dict:
+    """Phase 3b: R1 against its plain version at the product's shape (a
+    0-d device variance, under torch's sync debug mode), a row-sharded
+    rank [rows + 2 halo, w, 4] with a model variance 4x the noise's, and
+    a small plane where reflections wrap; R1 timed at the product's shape
+    against its plain version and its byte bound."""
+    from yondx_torch.pipeline import refine, refine_kernels
+    shape, nsr = (1, 1736, 2312, 4), 0.03
+    z_dn, z_noisy = refine_inputs(dev, shape, nsr, 0)
+    var = torch.tensor(nsr, device=dev) ** 2
+    refine.wiener_refine(z_dn, z_noisy, var, x01=z_dn)   # loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        refine.wiener_refine(z_dn, z_noisy, var, x01=z_dn)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    say("R1", "product call made no host sync (sync debug mode 'error')")
+    rec = {"cases": {
+        "product": refine_vs_plain("product", (z_dn, z_noisy),
+                                   {"noise_var": var, "x01": z_dn}),
+        "rank": refine_vs_plain(
+            "sharded rank", refine_inputs(dev, (783 + 2 * 64, 4096, 4),
+                                          0.05, 1),
+            {"noise_var": 0.1 ** 2}),
+        "small": refine_vs_plain("small", refine_inputs(dev, (1, 20, 33, 4),
+                                                         0.03, 2),
+                                 {"noise_var": 0.03 ** 2})}}
+    ms = cuda_ms(lambda: refine.wiener_refine(z_dn, z_noisy, var, x01=z_dn),
+                 20, flush)
+    plain = cuda_ms(lambda: refine.wiener_refine_plain(z_dn, z_noisy, var,
+                                                       x01=z_dn), 5, flush)
+    # one read of z_dn and z_noisy and one write of the output
+    bytes_moved = 3 * 4 * z_dn.numel()
+    bound = bytes_moved / bw * 1e3
+    refine_kernels.reset_launches()
+    refine.wiener_refine(z_dn, z_noisy, var, x01=z_dn)
+    launches = sum(refine_kernels.LAUNCHES.values())
+    say("R1 timing", f"{list(shape)}, cold L2, host enqueue included: "
+        f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms by bytes "
+        f"({bytes_moved / 1e6:.1f} MB), {ms / bound:.1f}x; {launches} "
+        "launches a call")
+    rec.update(ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+               launches_per_call=launches,
+               max_abs_err=max(c["max_abs_err"]
+                               for c in rec["cases"].values()))
+    return rec
 
 
 def cuda_ms(fn, reps: int, flush=None) -> float:
@@ -4849,6 +4959,9 @@ def main(argv=None) -> dict:
             + (f"; plain (self) {plain:.4f} ms" if plain else "")
             + "; max abs err against float64: "
             + fmt_err64(err64[label[0]]))
+
+    # 3b. the Wiener refine's kernels (R1) against their plain version -----
+    r1 = refine_phase(dev, bw, flush)
     del scratch, frame_a, x_a, cases
 
     # 4. card path against the port's CPU path, end to end ------------------
@@ -4906,7 +5019,10 @@ def main(argv=None) -> dict:
     dn, regs = fused(rggb, scale)
     torch.cuda.synchronize()
     say("main path", f"warm-up {time.perf_counter() - t:.2f} s")
+    from yondx_torch.pipeline import fused as fused_mod
+    from yondx_torch.pipeline import refine_kernels
     moments.reset_launches()
+    refine_kernels.reset_launches()
     fused.stats["second_passes"] = 0
     times = []
     runs = 5
@@ -4916,6 +5032,7 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     launches = moments.LAUNCHES["nle_moments"]
+    r1_launches = dict(refine_kernels.LAUNCHES)
     second = fused.stats["second_passes"]
     dt = float(np.median(times))
     out = rggb2bayer(dn[0]).float().cpu().numpy()
@@ -4937,6 +5054,28 @@ def main(argv=None) -> dict:
     if launches != 3 * runs:
         raise AssertionError(f"K1 launched {launches} times in {runs} "
                              f"frames, expected {3 * runs}")
+    # one refine a frame: three floor launches and three level passes
+    say("main path", f"R1 launches {r1_launches} in {runs} frames")
+    if r1_launches != {"refine_floor": 3 * runs, "refine": 3 * runs}:
+        raise AssertionError(f"R1 launched {r1_launches} in {runs} frames")
+    # R1 on the refine's own inputs of one main-path frame
+    seen, orig = [], fused_mod.wiener_refine
+
+    def spy(*a, **kw):
+        seen.append((a, kw))
+        return orig(*a, **kw)
+
+    fused_mod.wiener_refine = spy
+    try:
+        fused(rggb, scale)
+    finally:
+        fused_mod.wiener_refine = orig
+    if len(seen) != 1:
+        raise AssertionError(f"main path refined {len(seen)} times a frame")
+    r1["main_path"] = refine_vs_plain("main-path frame", *seen[0])
+    r1["main_path"]["launches_per_frame"] = {
+        n: v // runs for n, v in r1_launches.items()}
+    del seen
 
     # where the time goes: one more main-path run under the profiler
     with _frame_file(noisy) as path:
@@ -5092,7 +5231,19 @@ def main(argv=None) -> dict:
             "bench_robust_overhead": phase22["d"]["launches"],
             "chroma_probe": phase22["e"]["launches"],
             "unet_roofline": phase22["f"]["launches"]},
-            **phase22}}]}
+            **phase22}}, {
+        "name": "refine", "route": "cuda",
+        "source": "yondx_torch/csrc/refine.cu",
+        "replaces": None,
+        # per call, timed at the product's shape [1, 1736, 2312, 4] (cold
+        # L2); bound: one read of z_dn and z_noisy, one write
+        "launches": r1["launches_per_call"], "max_abs_err": r1["max_abs_err"],
+        "ms": r1["ms"], "plain_ms": r1["plain_ms"],
+        "bound_ms": r1["bound_ms"], "bound_by": r1["bound_by"],
+        "library_ms": None,
+        # phase 3b's shapes and phase 5's main-path frame: error, floor
+        # table equality, launches a frame
+        "cases": {**r1["cases"], "main_path": r1["main_path"]}}]}
     say("done", f"all 22 phases in {time.perf_counter() - T0:.2f} s")
     print(json.dumps(record), flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": name,

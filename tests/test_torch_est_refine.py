@@ -34,6 +34,7 @@ from yondx_torch.pipeline import refine as t_refine
 from yondx_torch.pipeline.denoiser import BM3DVSTDenoiser, VSTDenoiser
 from yondx_torch.pipeline.engine import PipelineConfig, YONDEngine
 from torch_test_util import _one_torch_thread  # noqa: F401
+from torch_test_util import refine_planes_data
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 EST_CKPT = os.path.join(REPO, "checkpoints", "Gaussian",
@@ -137,20 +138,7 @@ def test_engine_pge_est_net_matches_jax(est):
 def refine_planes():
     """Piecewise-flat planes with a textured half the 'denoiser' smoothed
     away, a near-white strip, and quieter noise there (clipped)."""
-    rng = np.random.default_rng(8)
-    levels = np.kron(rng.random((2, 4, 6, 1)) * 0.9 + 0.05,
-                     np.ones((1, 24, 24, 4))).astype(np.float32)
-    yy, xx = np.mgrid[0:96, 0:144]
-    tex = (0.06 * np.sin(0.9 * xx + 0.4 * yy) * (xx < 72))[None, :, :, None]
-    clean = np.clip(levels + tex, 0, 1).astype(np.float32)
-    clean[:, :10] = 0.99
-    nsr = 0.03
-    noise = rng.normal(0, nsr, clean.shape) * np.where(clean > 0.9, 0.3, 1.0)
-    z_noisy = (clean + noise).astype(np.float32)
-    z_dn = (levels + rng.normal(0, nsr * 0.2, clean.shape)).astype(
-        np.float32)
-    z_dn[:, :10] = 0.99
-    return z_dn, z_noisy, nsr
+    return refine_planes_data()
 
 
 @pytest.mark.parametrize(

@@ -121,7 +121,7 @@ def test_wrapper_rejects_unknown_devices():
 def test_kernel_build_inputs_are_the_repo_sources():
     from yondx_torch import cuda_build
     srcs = [p.name for p in cuda_build._sources()]
-    assert srcs == ["nle_moments.cu"]
+    assert srcs == ["nle_moments.cu", "refine.cu"]
     assert cuda_build.source_hash() == cuda_build.source_hash()
     assert cuda_build.BUILD_DIR.name == "_build"
     assert "arch=compute_90a,code=sm_90a" in cuda_build.ARCH_FLAGS

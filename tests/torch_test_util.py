@@ -35,6 +35,26 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def refine_planes_data():
+    """(z_dn, z_noisy, nsr) [2, 96, 144, 4] float32 for the Wiener refine:
+    piecewise-flat planes with a textured half the 'denoiser' smoothed
+    away, a near-white strip, and quieter noise there (clipped)."""
+    rng = np.random.default_rng(8)
+    levels = np.kron(rng.random((2, 4, 6, 1)) * 0.9 + 0.05,
+                     np.ones((1, 24, 24, 4))).astype(np.float32)
+    yy, xx = np.mgrid[0:96, 0:144]
+    tex = (0.06 * np.sin(0.9 * xx + 0.4 * yy) * (xx < 72))[None, :, :, None]
+    clean = np.clip(levels + tex, 0, 1).astype(np.float32)
+    clean[:, :10] = 0.99
+    nsr = 0.03
+    noise = rng.normal(0, nsr, clean.shape) * np.where(clean > 0.9, 0.3, 1.0)
+    z_noisy = (clean + noise).astype(np.float32)
+    z_dn = (levels + rng.normal(0, nsr * 0.2, clean.shape)).astype(
+        np.float32)
+    z_dn[:, :10] = 0.99
+    return z_dn, z_noisy, nsr
+
+
 class BoxBlur3(torch.nn.Module):
     """A 3x3 reflect-101 box mean per channel of [B, h, w, C] planes: the
     port's stand-in for tests/test_product_50mp.py's _BlurModel (a weak

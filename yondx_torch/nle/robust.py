@@ -150,16 +150,27 @@ def _maybe_subsample(d, m):
     return d, m
 
 
+def _band_plan(h: int, w: int, planes: int, max_px: int):
+    """The bands _band_subsample_rows keeps of `planes` [h, w] planes:
+    (keep, stride), `keep` bands of _BAND rows, every `stride`-th from
+    the first; None where it keeps every row."""
+    max_rows = max(_BAND, max_px // max(w * planes, 1))
+    if h <= max_rows or h < 2 * _BAND:
+        return None
+    nb = h // _BAND
+    keep = max(1, min(nb, max_rows // _BAND))
+    return keep, nb // keep
+
+
 def _band_subsample_rows(x, max_px: int):
     """Evenly-spaced contiguous _BAND-row bands totalling <= max_px px."""
     h, w = x.shape[-3], x.shape[-2]
     per_ch = int(np.prod(x.shape[:-3], dtype=np.int64)) * x.shape[-1]
-    max_rows = max(_BAND, max_px // max(w * per_ch, 1))
-    if h <= max_rows or h < 2 * _BAND:
+    plan = _band_plan(h, w, per_ch, max_px)
+    if plan is None:
         return x
+    keep, stride = plan
     nb = h // _BAND
-    keep = max(1, min(nb, max_rows // _BAND))
-    stride = nb // keep
     lead = tuple(x.shape[:-3])
     xb = x[..., :nb * _BAND, :, :].reshape(lead + (nb, _BAND, w,
                                                    x.shape[-1]))

@@ -18,26 +18,38 @@ from ..core.tiling import reflect_pad
 from ..nle.boxfilter import box_mean
 from ..nle.robust import _band_subsample_rows, _first_reaching, _haar_hh
 
+# The refine's fixed settings (the defaults below, which wiener_refine
+# keeps), read from here by its kernels (refine_kernels.py): the a-trous
+# shrink's levels, stabiliser box and directional gate; the bucket
+# floor's buckets, quantile, trust ramp, log-|detail| bins over SPAN of
+# log range, and sample budget.
+LEVELS, STAB_K, DIR_L, DIR_C0, DIR_C1 = 3, 3, 9, 8.0, 8.0
+FLOOR_NB, FLOOR_Q, FLOOR_MIN_COUNT = 64, 0.2, 64
+FLOOR_TRUST_LO, FLOOR_TRUST_HI = 0.35, 0.60
+FLOOR_NBIN, FLOOR_SPAN = 128, float(np.log(1e4))
+FLOOR_MAX_SAMPLES = 1 << 19
 
-def _bucket_noise_floor(z_noisy, z_dn, noise_var, nb: int = 64,
-                        q: float = 0.2, min_count: int = 64,
-                        trust_lo: float = 0.35, trust_hi: float = 0.60):
-    """Per-intensity content-free noise floor measured on the input: the
-    q-quantile |Haar detail| of z_noisy per z_dn-intensity bucket, trusted
-    below trust_hi x the model variance; a per-pixel map via z_dn."""
-    zs = _band_subsample_rows(z_noisy, 4 * (1 << 19))
-    ds = _band_subsample_rows(z_dn, 4 * (1 << 19))
+
+def _bucket_floor_table(z_noisy, z_dn, noise_var, nb: int = FLOOR_NB,
+                        q: float = FLOOR_Q, min_count: int = FLOOR_MIN_COUNT,
+                        trust_lo: float = FLOOR_TRUST_LO,
+                        trust_hi: float = FLOOR_TRUST_HI):
+    """The [nb] noise floor of each z_dn-intensity bucket: the q-quantile
+    |Haar detail| of z_noisy there, trusted below trust_hi x the model
+    variance."""
+    zs = _band_subsample_rows(z_noisy, 4 * FLOOR_MAX_SAMPLES)
+    ds = _band_subsample_rows(z_dn, 4 * FLOOR_MAX_SAMPLES)
     d, _ = _haar_hh(zs)
     _, mc = _haar_hh(ds)
     d = torch.abs(d).reshape(-1)
     mc = torch.clamp(mc.reshape(-1), 0.0, 1.0)
-    if d.shape[0] > (1 << 19):
-        s = d.shape[0] // (1 << 19) + 1
+    if d.shape[0] > FLOOR_MAX_SAMPLES:
+        s = d.shape[0] // FLOOR_MAX_SAMPLES + 1
         d, mc = d[::s], mc[::s]
-    nd = 128
+    nd = FLOOR_NBIN
     dmax = torch.max(d) + 1e-30
     lr = torch.log(torch.clamp(d / dmax, 1e-4, 1.0))
-    span = float(np.log(1e4))
+    span = FLOOR_SPAN
     dbin = torch.clamp(((lr + span) / span * nd).to(torch.int64), 0, nd - 1)
     bucket = torch.clamp((mc * (nb - 1)).to(torch.int64), 0, nb - 1)
     counts = torch.zeros(nb * nd, device=d.device).index_add_(
@@ -60,7 +72,14 @@ def _bucket_noise_floor(z_noisy, z_dn, noise_var, nb: int = 64,
     t = torch.clamp((ratio - trust_lo) / (trust_hi - trust_lo), 0.0, 1.0)
     floor_b = torch.minimum(V, q_b * (1.0 - t) + V * t)
     floor_b = torch.where(n_b >= min_count, floor_b, V.expand_as(floor_b))
-    floor_b = torch.clamp(floor_b, min=1e-12)
+    return torch.clamp(floor_b, min=1e-12)
+
+
+def _bucket_noise_floor(z_noisy, z_dn, noise_var, nb: int = FLOOR_NB,
+                        **kw):
+    """Per-intensity content-free noise floor measured on the input
+    (_bucket_floor_table, keywords as its), a per-pixel map via z_dn."""
+    floor_b = _bucket_floor_table(z_noisy, z_dn, noise_var, nb, **kw)
     pix = torch.clamp((torch.clamp(z_dn, 0.0, 1.0) * (nb - 1))
                       .to(torch.int64), 0, nb - 1)
     return floor_b[pix]
@@ -168,10 +187,10 @@ def _dir_coherence(d, t: int, L: int):
     return coh_ax, coh_dg
 
 
-def shrink_residual_atrous(r, noise_var, levels: int = 3, lam: float = 1.0,
-                           stab_k: int = 3, mode: str = "oriented",
-                           dir_L: int = 9, dir_c0: float = 8.0,
-                           dir_c1: float = 8.0):
+def shrink_residual_atrous(r, noise_var, levels: int = LEVELS,
+                           lam: float = 1.0, stab_k: int = STAB_K,
+                           mode: str = "oriented", dir_L: int = DIR_L,
+                           dir_c0: float = DIR_C0, dir_c1: float = DIR_C1):
     """Per-band empirical-Wiener shrink of the residual in the a-trous
     domain; mode 'oriented' adds the orientation-coherence structure
     gate, 'iso' keeps the isotropic gain alone. Returns (shrunk residual,
@@ -282,7 +301,32 @@ def wiener_refine(z_dn, z_noisy, noise_var=1.0, *, k: int = 15,
     With residual_shrink and shrink_full_alpha >= 1: out = z_dn + alpha *
     shrunk(r) + (1 - alpha) * structure(r); with shrink_full_alpha < 1
     the shrunk residual is handed back to the raw one as alpha rises
-    past it; without the shrink: out = z_dn + alpha * r."""
+    past it; without the shrink: out = z_dn + alpha * r.
+
+    CUDA tensors run the refine's kernels (refine_kernels.py; float32
+    [..., h, w, 4] planes, or it raises); CPU tensors run the plain
+    version, wiener_refine_plain."""
+    kw = dict(k=k, beta=beta, deadband=deadband, x01=x01, sat_lo=sat_lo,
+              sat_hi=sat_hi, noise_floor=noise_floor,
+              floor_stride=floor_stride, residual_shrink=residual_shrink,
+              shrink_lam=shrink_lam, shrink_full_alpha=shrink_full_alpha,
+              shrink_mode=shrink_mode)
+    if z_dn.device.type == "cuda":
+        from .refine_kernels import wiener_refine_cuda
+        return wiener_refine_cuda(z_dn, z_noisy, noise_var, **kw)
+    if z_dn.device.type != "cpu":
+        raise RuntimeError(f"wiener_refine: no path for device {z_dn.device}")
+    return wiener_refine_plain(z_dn, z_noisy, noise_var, **kw)
+
+
+def wiener_refine_plain(z_dn, z_noisy, noise_var=1.0, *, k: int = 15,
+                        beta: float = 1.0, deadband: float = 2.0, x01=None,
+                        sat_lo: float = 0.92, sat_hi: float = 0.98,
+                        noise_floor: str = "bucket", floor_stride: int = 32,
+                        residual_shrink: bool = True, shrink_lam: float = 1.0,
+                        shrink_full_alpha: float = 1.0,
+                        shrink_mode: str = "oriented"):
+    """The plain PyTorch version of wiener_refine (any device)."""
     r = z_noisy - z_dn
     local_pow = box_mean(r * r, k)
     if noise_floor == "bucket":
